@@ -1,0 +1,12 @@
+"""PyTorch and CUDA port of the dollar-scored caching reference.
+
+`repro_torch.core` holds the replay engine (`policies_torch`) and its own
+copies of the host modules it needs (pricing, traces, the heap policies,
+the exact optimum, regret). `repro_torch.kernels` holds the hand-written
+CUDA kernels for Hopper (`sm_90a`), their plain PyTorch versions and the
+dispatch between them. Entry points run on the card unless the caller
+passes `device="cpu"`.
+"""
+from . import core, kernels
+
+__all__ = ["core", "kernels"]
