@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's replay sweep on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed 1]
 
@@ -7,16 +7,21 @@ toolkit. It builds the CUDA kernels from `src/repro_torch/kernels/csrc`,
 holds each kernel against its plain PyTorch version on the card, replays the
 paper's (policy x price vector x budget) grid on a 20k-request trace on the
 card with kernels, on the card without, and on the CPU (the three grids must
-be bit-equal), scores the dollars against the exact optimum, then runs the
-full-size sweep (200k requests, 20k objects, 96 cells) through the kernels.
-It prints one JSON line per phase, the `nvidia-smi` name and power limit,
-one line that lists every kernel with its time beside its bound, and last
-`{"ok": true, "device": {...}}`. Any failed check raises and exits non-zero;
-without a CUDA device it exits non-zero before printing any result.
+be bit-equal), scores the dollars against the exact optimum, checks the
+exact optimum's schedules through the occupancy scan, brackets the
+dollar-optimum of a 200k-request variable-size CDN trace with cost-FOO
+(its rounded schedule checked on the card, the bracket equal to a CPU
+run's), then runs the full-size sweep (200k requests, 20k objects, 96
+cells) through the kernels. It prints one JSON line per phase, the
+`nvidia-smi` name and power limit, one line that lists every kernel with
+its time beside its bound, and last `{"ok": true, "device": {...}}`. Any
+failed check raises and exits non-zero; without a CUDA device it exits
+non-zero before printing any result.
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import statistics
@@ -30,20 +35,29 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.core import (PRICE_VECTORS, Trace, exact_opt_uniform_sweep,  # noqa: E402
-                              miss_costs, regret, simulate, sweep_torch,
-                              twemcache_like)
+from repro_torch.core import (PRICE_VECTORS, Trace, cost_foo,  # noqa: E402
+                              exact_opt_uniform, exact_opt_uniform_sweep,
+                              interval_deltas, miss_costs, regret, simulate,
+                              sweep_torch, twemcache_like, wiki_cdn_like)
 from repro_torch.core.trace import next_use_indices  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.evict_argmin import evict_argmin_cuda  # noqa: E402
+from repro_torch.kernels.interval_occupancy import (  # noqa: E402
+    error_chain, interval_occupancy_cuda, occupancy_feasible_cuda)
 from repro_torch.kernels.next_use import (next_use_cuda,  # noqa: E402
                                           shared_table_entries)
+
+# the module (the package's `cost_foo` names the function)
+cost_foo_module = importlib.import_module("repro_torch.core.cost_foo")
 
 POLICIES = ["lru", "lfu", "gds", "gdsf", "belady", "cost_belady"]
 PRICES = list(PRICE_VECTORS)
 PARITY_BUDGETS = np.array([32, 64, 128, 256])
 FULL_BUDGETS = np.array([320, 640, 1280, 2560])
+SCAN_T = [1, 31, 4095, 4096, 4097, 200_000, 2**24 + 3]
+SCAN_BYTES_T = 2**26        # 256 MiB an array: far past the 50 MB L2
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
+NO_LAUNCHES = {name: 0 for name in ops.KERNELS}
 
 KERNEL_INFO = {
     "evict_argmin": dict(
@@ -54,7 +68,25 @@ KERNEL_INFO = {
         route="cuda", source="src/repro_torch/kernels/csrc/next_use.cu",
         replaces="src/repro/kernels/next_use.py:55",
         replaces_function="next_use_pallas"),
+    "occupancy_feasible": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/occupancy_scan.cu",
+        replaces="src/repro/kernels/interval_occupancy.py:92",
+        replaces_function="occupancy_feasible_pallas"),
+    "interval_occupancy": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/occupancy_scan.cu",
+        replaces="src/repro/kernels/interval_occupancy.py:50",
+        replaces_function="interval_occupancy_pallas"),
 }
+TOLERANCE = {
+    "evict_argmin": "exact",
+    "next_use": "exact",
+    "occupancy_feasible": "exact on integer-valued deltas; byte sizes: occ "
+                          "within k*2^-24*sum_{q<=p}|d_q| of float64 (k from "
+                          "csrc/occupancy_scan.cu), excess within that plus "
+                          "one float32 rounding of occ - zcap",
+}
+TOLERANCE["interval_occupancy"] = TOLERANCE["occupancy_feasible"]
+
 
 
 def emit(phase: str, **fields) -> None:
@@ -94,9 +126,97 @@ def argmin_inputs(rng, C, N, dtype, dev, lo=-8, hi=8, t_lo=0, t_hi=10_000,
     return scores, touch, mask
 
 
+def byte_deltas(rng, T: int, dtype: str) -> np.ndarray:
+    """Range-adds of a schedule of byte-sized intervals (sizes up to the
+    94 MB of wiki_cdn_like's largest object) in float64, cast to dtype."""
+    n = max(1, T // 4)
+    t = rng.integers(0, T, n)
+    u = np.minimum(t + rng.geometric(1e-3, n), T)
+    size = np.minimum(rng.lognormal(11.5, 2.5, n), 9.4e7)
+    d = np.zeros(T)
+    np.add.at(d, t, size)
+    np.add.at(d, u[u < T], -size[u < T])
+    if dtype == "int32":
+        return np.rint(d).astype(np.int32)
+    return d.astype(np.float32)
+
+
+def check_scan_bound(label: str, occ: torch.Tensor, ex: torch.Tensor,
+                     d: np.ndarray, z: np.ndarray) -> dict:
+    """Hold the scan's occ and excess to its rounding bound against the
+    float64 prefix sum of the float32 deltas. Returns the worst share of
+    the bound used and the largest gap to float64."""
+    d32 = np.asarray(d).astype(np.float32).astype(np.float64)
+    z64 = np.asarray(z, np.float64)
+    exact = np.cumsum(d32)
+    bound = error_chain(len(d32)) * 2.0**-24 * np.cumsum(np.abs(d32))
+    got = occ.cpu().numpy().astype(np.float64)
+    err = np.abs(got - exact)
+    check(bool((err <= bound).all()),
+          f"occ outside its rounding bound: {label}")
+    ex_gap = abs(float(ex) - float(np.max(exact - z64)))
+    ex_bound = float(bound.max() + 2.0**-24 * np.abs(got - z64).max())
+    check(ex_gap <= ex_bound, f"excess outside its rounding bound: {label}")
+    used = np.divide(err, bound, out=np.zeros_like(err), where=bound > 0)
+    return dict(bound_share=max(float(used.max()),
+                                ex_gap / ex_bound if ex_bound > 0 else 0.0),
+                max_abs_err_vs_f64=max(float(err.max()), ex_gap))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def scan_checks(rng, dev, errs: dict, cases: list) -> dict:
+    """Both scans at every T of SCAN_T with float32 and int32 deltas:
+    bit-equal to the plain versions on integer-valued deltas (every partial
+    sum exact); within the rounding bound on byte sizes, with two runs
+    giving equal bits."""
+    worst = {"bound_share": 0.0, "max_abs_err_vs_f64": 0.0}
+    for T in SCAN_T:
+        for dtype in ("float32", "int32"):
+            tdt = torch.float32 if dtype == "float32" else torch.int32
+            d = torch.tensor(rng.integers(-3, 4, T), device=dev).to(tdt)
+            z = torch.tensor(rng.integers(0, 8, T).astype(np.float32),
+                             device=dev)
+            occ, ex = occupancy_feasible_cuda(d, z)
+            scan = interval_occupancy_cuda(d)
+            w_occ, w_ex = ref.occupancy_feasible_ref(d, z)
+            torch.cuda.synchronize()
+            label = f"scan T={T} {dtype}"
+            check(torch.equal(occ, w_occ) and torch.equal(ex, w_ex),
+                  f"occupancy_feasible differs from plain: {label}")
+            check(torch.equal(scan, w_occ),
+                  f"interval_occupancy differs from plain: {label}")
+            errs["occupancy_feasible"] = max(
+                errs["occupancy_feasible"], float((occ - w_occ).abs().max()),
+                abs(float(ex - w_ex)))
+            errs["interval_occupancy"] = max(
+                errs["interval_occupancy"], float((scan - w_occ).abs().max()))
+            cases.append(f"{label} integer deltas")
+
+            d_np = byte_deltas(rng, T, dtype)
+            z_np = (np.cumsum(d_np.astype(np.float32).astype(np.float64))
+                    + rng.normal(0, 1e6, T)).astype(np.float32)
+            d_t = torch.tensor(d_np, device=dev)
+            z_t = torch.tensor(z_np, device=dev)
+            occ, ex = occupancy_feasible_cuda(d_t, z_t)
+            occ2, ex2 = occupancy_feasible_cuda(d_t, z_t)
+            scan = interval_occupancy_cuda(d_t)
+            torch.cuda.synchronize()
+            check(same_bits(occ, occ2) and same_bits(ex, ex2),
+                  f"two runs differ: {label} byte sizes")
+            check(same_bits(scan, occ),
+                  f"the two scans differ: {label} byte sizes")
+            r = check_scan_bound(f"{label} byte sizes", occ, ex, d_np, z_np)
+            worst = {k: max(worst[k], r[k]) for k in worst}
+            cases.append(f"{label} byte sizes")
+    return worst
+
+
 def phase_kernel_checks(seed: int, dev) -> dict:
     rng = np.random.default_rng(seed)
-    errs = {"evict_argmin": 0.0, "next_use": 0.0}
+    errs = {name: 0.0 for name in ops.KERNELS}
     cases = []
 
     def argmin_case(label, scores, touch, mask):
@@ -160,7 +280,10 @@ def phase_kernel_checks(seed: int, dev) -> dict:
                                float((got - plain).abs().max()))
         cases.append(f"next_use {label} ({'shared' if N <= limit else 'global'}"
                      " table)")
+    scan_bytes = scan_checks(rng, dev, errs, cases)
     emit("kernel_checks", cases=cases, max_abs_err=errs,
+         scan_byte_sizes=scan_bytes,
+         scan_error_chain={T: error_chain(T) for T in SCAN_T},
          shared_table_entries=limit)
     return errs
 
@@ -209,6 +332,113 @@ def phase_regret(tr: Trace, cm: np.ndarray, grid: np.ndarray) -> None:
     emit("regret", budgets=PARITY_BUDGETS.tolist(), regret=table)
 
 
+def phase_opt_occupancy(tr: Trace, cm: np.ndarray, dev) -> dict:
+    """interval_occupancy's path: the exact optimum's schedule on the parity
+    trace (s3_internet) at each parity budget, turned into deltas and
+    scanned on the card, never holds more than B - 1 pages between
+    requests (the requested page takes the last slot)."""
+    costs = cm[PRICES.index("s3_internet")]
+    T = tr.num_requests
+    schedules = []
+    for B in PARITY_BUDGETS:
+        r = exact_opt_uniform(tr.ids, costs, int(B), return_selected=True)
+        t = np.array([iv.t for iv in r.selected], np.int64)
+        u = np.array([iv.u for iv in r.selected], np.int64)
+        deltas = np.zeros(T, np.float32)
+        np.add.at(deltas, t + 1, 1.0)
+        np.add.at(deltas, u[u < T], -1.0)
+        schedules.append((int(B), len(r.selected),
+                          torch.tensor(deltas, device=dev)))
+    ops.reset_launch_counts()
+    occs = [ops.interval_occupancy(d) for _, _, d in schedules]
+    peaks = [float(o.max()) for o in occs]
+    launches = ops.launch_counts()
+    check(launches == {**NO_LAUNCHES,
+                       "interval_occupancy": len(PARITY_BUDGETS)},
+          f"opt_occupancy launches {launches}")
+    for (B, _, d), occ, peak in zip(schedules, occs, peaks):
+        check(torch.equal(occ, ref.interval_occupancy_ref(d)),
+              f"interval_occupancy differs from plain at B={B}")
+        check(peak <= B - 1, f"OPT schedule holds {peak} pages at B={B}")
+    emit("opt_occupancy", trace="twemcache_like", price="s3_internet",
+         n_requests=T, budgets=PARITY_BUDGETS.tolist(),
+         selected_intervals=[n for _, n, _ in schedules], peak_pages=peaks,
+         launches=launches)
+    return launches
+
+
+def phase_costfoo_cdn(seed: int, dev) -> dict:
+    """cost-FOO's bracket on the CDN configuration of
+    benchmarks/bench_costfoo.py (`cdn_vs_prepr`), its rounded schedule
+    checked on the card through occupancy_feasible, against the same run
+    with the check on the CPU. The check's arguments are captured from the
+    card run: they feed the infeasible-schedule check and the kernel line's
+    timing at the path's shape."""
+    tr = wiki_cdn_like(n_objects=60_000, n_requests=200_000, seed=seed)
+    costs = miss_costs(tr.sizes, PRICE_VECTORS["gcs_internet"])
+    B = float(np.quantile(tr.sizes, 0.9) * 400)
+    kw = dict(policies=("gdsf",), validate=True)
+    original = cost_foo_module._validate_schedule
+    seen = {}
+
+    def timed_check(*args):
+        t0 = time.perf_counter()
+        original(*args)
+        seen.update(args=args, seconds=time.perf_counter() - t0)
+
+    cost_foo_module._validate_schedule = timed_check
+    try:
+        ops.reset_launch_counts()
+        card = cost_foo(tr, costs, B, device="cuda", **kw)
+        launches = ops.launch_counts()
+    finally:
+        cost_foo_module._validate_schedule = original
+    host = cost_foo(tr, costs, B, device="cpu", **kw)
+    check(launches == {**NO_LAUNCHES, "occupancy_feasible": 1},
+          f"costfoo_cdn launches {launches}, expected occupancy_feasible=1")
+    check((card.lower, card.upper, card.bracket)
+          == (host.lower, host.upper, host.bracket),
+          f"card bracket {card.lower, card.upper} != CPU bracket "
+          f"{host.lower, host.upper}")
+    check(card.lower <= card.upper, "cost-FOO lower above upper")
+    check(np.isfinite([card.lower, card.upper, card.bracket]).all(),
+          "cost-FOO bracket not finite")
+
+    pt, pu, pz, accepted, zcap, T, B_, use_kernel, dev_ = seen["args"]
+    acc = np.asarray(accepted, np.int64)
+    deltas = interval_deltas(pt[acc], pu[acc], pz[acc], T)
+    d32, z32 = deltas.astype(np.float32), np.asarray(zcap).astype(np.float32)
+    d_t, z_t = torch.tensor(d32, device=dev), torch.tensor(z32, device=dev)
+    occ, ex = ops.occupancy_feasible(d_t, z_t)
+    _, ex_plain = ref.occupancy_feasible_ref(d_t, z_t)
+    _, ex_cpu = ops.occupancy_feasible(torch.tensor(d32), torch.tensor(z32))
+    on_path = check_scan_bound("costfoo_cdn schedule", occ, ex, d32, z32)
+    tol = max(cost_foo_module._round_tol(B_), 1e-4 * max(1.0, B_))
+
+    occ64 = np.cumsum(deltas)
+    p = int(np.argmax(occ64[1:] - zcap[1:])) + 1
+    bad = np.array(zcap, np.float64)
+    bad[p] = occ64[p] - float(pz[acc].max())
+    try:
+        original(pt, pu, pz, accepted, bad, T, B_, use_kernel, dev_)
+    except AssertionError as e:
+        refused = str(e)
+        check("exceeds zcap" in refused, f"unexpected refusal: {refused}")
+    else:
+        raise AssertionError("an infeasible schedule passed the check on "
+                             "the card")
+    emit("costfoo_cdn", trace="wiki_cdn_like", n_objects=tr.num_objects,
+         n_requests=T, price="gcs_internet", budget_bytes=B_,
+         policies=list(kw["policies"]), lower=card.lower, upper=card.upper,
+         bracket=card.bracket, bracket_equal_cpu=True,
+         profile_card=card.profile, profile_cpu=host.profile,
+         check_seconds_card=seen["seconds"], launches=launches,
+         accepted_intervals=len(accepted), excess_card=float(ex),
+         excess_plain_card=float(ex_plain), excess_cpu=float(ex_cpu),
+         tolerance=tol, scan_vs_float64=on_path, infeasible_refused=refused)
+    return dict(launches=launches, deltas=d32, zcap=z32)
+
+
 def phase_replay_full(seed: int) -> dict:
     tr = twemcache_like(n_objects=20000, n_requests=200_000, seed=seed)
     cm = price_matrix(tr)
@@ -221,9 +451,9 @@ def phase_replay_full(seed: int) -> dict:
                                 profile=prof, return_hits=True)
     launches = ops.launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    check(launches == {"evict_argmin": T, "next_use": 1},
+    check(launches == {**NO_LAUNCHES, "evict_argmin": T, "next_use": 1},
           f"main path launches {launches}, expected evict_argmin={T}, "
-          "next_use=1")
+          "next_use=1 and no scan")
     check(dollars.shape == (6, 4, 4) and np.isfinite(dollars).all(),
           "full grid has the wrong shape or non-finite dollars")
     p, k = PRICES.index("s3_internet"), 1
@@ -284,18 +514,52 @@ def phase_replay_profile(tr: Trace, full_execute_s: float,
          top_host_us_per_step=top(on_host, lambda e: e.self_cpu_time_total, 10))
 
 
+def device_time(fn, reps: int = 20) -> dict:
+    """Device time per call of the kernels `fn` launches, in all and by
+    kernel name, from a torch.profiler trace of `reps` calls ("not
+    measured" if the trace holds no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].removeprefix("void ").strip()
+            by_name[name] = by_name.get(name, 0.0) + \
+                e.self_device_time_total / 1e3 / reps
+    if not by_name:
+        return dict(ms="not measured", kernels={})
+    return dict(ms=sum(by_name.values()), kernels=by_name)
+
+
 def phase_kernels(seed: int, dev, errs: dict, launches: dict,
-                  tr: Trace) -> None:
+                  tr: Trace, schedule: dict) -> None:
     """Time each kernel at the main path's shapes beside its plain version
     and its bound.
 
-    evict_argmin gets the replay's steady state: 96 cell rows of the full
-    trace's objects, each row with as many cached entries as its cell's
-    budget less one (the requested object is masked out), one shared touch
-    row. Its bound counts what that data needs: every mask byte, the score
-    of each cached entry, the touch row and the outputs. Inputs are warm in
-    L2, as in the replay, where the op just before wrote the scores.
-    next_use reads each id once and writes each result once."""
+    `ms`, `plain_ms` and `library_ms` are CUDA-event windows over
+    back-to-back calls (what a caller sees, host work between launches
+    included); `device_ms`, `plain_device_ms` and `library_device_ms` are
+    the profiler's device time per call, and `device_kernels` splits the
+    kernel's by device kernel. evict_argmin gets the replay's steady
+    state: 96 cell rows of the full trace's objects, each row with as many
+    cached entries as its cell's budget less one (the requested object is
+    masked out), one shared touch row. Its bound counts what that data
+    needs: every mask byte, the score of each cached entry, the touch row
+    and the outputs. Inputs are warm in L2, as in the replay, where the op
+    just before wrote the scores. next_use reads each id once and writes
+    each result once. The scans run on cost-FOO's CDN schedule (T = 200,000
+    float32 deltas and caps, 2.4 MB, warm in L2) and again at T = 2^26
+    (256 MiB an array, cold), where bytes and not launches should set the
+    time; their bound is 12*T bytes (deltas, zcap, occ) for
+    occupancy_feasible and 8*T for interval_occupancy."""
     rng = np.random.default_rng(seed + 1)
     C, N = len(POLICIES) * len(PRICES) * len(FULL_BUDGETS), tr.num_objects
     s = torch.tensor(rng.standard_normal((C, N)).astype(np.float32),
@@ -311,29 +575,60 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
     ids_t = torch.tensor(tr.ids.astype(np.int32), device=dev)
     T = ids_t.numel()
     next_bytes = T * 4 + T * 4
-    dense_bytes = {"evict_argmin": C * N * (4 + 4 + 1), "next_use": next_bytes}
-    rows = []
-    for name, kernel, plain, nbytes, shape in [
+    dense_bytes = {"evict_argmin": C * N * (4 + 4 + 1)}
+    d200 = torch.tensor(schedule["deltas"], device=dev)
+    z200 = torch.tensor(schedule["zcap"], device=dev)
+    T200 = d200.numel()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d26 = torch.randint(-3, 4, (SCAN_BYTES_T,), generator=gen, device=dev,
+                        dtype=torch.int32).float()
+    z26 = torch.randint(0, 8, (SCAN_BYTES_T,), generator=gen, device=dev,
+                        dtype=torch.int32).float()
+    cases = [
         ("evict_argmin", lambda: evict_argmin_cuda(s, t, m),
-         lambda: ref.evict_argmin_ref(s, t, m), argmin_bytes,
+         lambda: ref.evict_argmin_ref(s, t, m), None, argmin_bytes, 50,
          dict(C=C, N=N, dtype="float32", touch="shared (N,)",
               cached_per_row=[int(b) - 1 for b in FULL_BUDGETS])),
         ("next_use", lambda: next_use_cuda(ids_t, N),
-         lambda: ref.next_use_ref(ids_t, N), next_bytes, dict(T=T, N=N)),
-    ]:
-        reps = 50 if name == "evict_argmin" else 5
+         lambda: ref.next_use_ref(ids_t, N), None, next_bytes, 5,
+         dict(T=T, N=N)),
+    ]
+    for d, z, label in [(d200, z200, "cost-FOO CDN schedule, warm in L2"),
+                        (d26, z26, "2^26 integer deltas, cold")]:
+        n = d.numel()
+        cases += [
+            ("occupancy_feasible",
+             lambda d=d, z=z: occupancy_feasible_cuda(d, z),
+             lambda d=d, z=z: ref.occupancy_feasible_ref(d, z), None,
+             12 * n, 50, dict(T=n, dtype="float32", data=label)),
+            ("interval_occupancy", lambda d=d: interval_occupancy_cuda(d),
+             lambda d=d: ref.interval_occupancy_ref(d),
+             lambda d=d: torch.cumsum(d, 0), 8 * n, 50,
+             dict(T=n, dtype="float32", data=label)),
+        ]
+    rows = []
+    for name, kernel, plain, library, nbytes, reps, shape in cases:
         ms = time_ms(kernel, reps=reps)
         plain_ms = time_ms(plain, reps=reps)
+        library_ms = time_ms(library, reps=reps) if library else None
+        on_card = device_time(kernel)
         rows.append(dict(
             name=name, **KERNEL_INFO[name], launches=launches[name],
-            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+            max_abs_err=errs[name], tolerance=TOLERANCE[name], ms=ms,
+            plain_ms=plain_ms, device_ms=on_card["ms"],
+            device_kernels=on_card["kernels"],
+            plain_device_ms=device_time(plain)["ms"],
+            library_device_ms=device_time(library)["ms"] if library else None,
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
             bound_note=f"{nbytes} bytes this data needs over 3.35 TB/s",
-            dense_bound_ms=dense_bytes[name] / HBM_BYTES_PER_S * 1e3,
+            dense_bound_ms=dense_bytes.get(name, nbytes) / HBM_BYTES_PER_S
+            * 1e3,
             dense_bound_note=("every score, touch and mask byte of each row "
                               "read" if name == "evict_argmin" else
                               "same as bound_ms"),
-            library_ms=None, shape=shape))
+            library_ms=library_ms,
+            library_call="torch.cumsum" if library else None, shape=shape))
+    del d26, z26
     print(json.dumps({"kernels": rows}), flush=True)
 
 
@@ -357,9 +652,18 @@ def main() -> int:
     errs = phase_kernel_checks(args.seed, dev)
     tr, cm, grid = phase_replay_parity(args.seed)
     phase_regret(tr, cm, grid)
+    opt_launches = phase_opt_occupancy(tr, cm, dev)
+    cdn = phase_costfoo_cdn(args.seed, dev)
     full = phase_replay_full(args.seed)
     phase_replay_profile(full["trace"], full["execute_s"])
-    phase_kernels(args.seed, dev, errs, full["launches"], full["trace"])
+    # each kernel's launches on its own path, counted from 0 around it
+    launches = {"evict_argmin": full["launches"]["evict_argmin"],
+                "next_use": full["launches"]["next_use"],
+                "interval_occupancy": opt_launches["interval_occupancy"],
+                "occupancy_feasible": cdn["launches"]["occupancy_feasible"]}
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel was not launched on its path: {launches}")
+    phase_kernels(args.seed, dev, errs, launches, full["trace"], cdn)
     print(smi[0], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

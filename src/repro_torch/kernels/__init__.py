@@ -2,12 +2,16 @@
 #   evict_argmin — the eviction decision of every priority policy, batched
 #                  over the cells of a sweep
 #   next_use     — next(t), read by Belady and cost-Belady
+# and behind cost-FOO's schedule check, one scan in one source:
+#   occupancy_feasible — occupancy profile and max excess over the cap
+#   interval_occupancy — the occupancy profile alone
 # Each has a CUDA source in csrc/, a ctypes wrapper that counts its launches,
 # a plain PyTorch version in ref.py, and a dispatcher in ops.py. The CUDA
 # library is built by nvcc at first use (_build.py), never at import.
 from . import ops, ref
-from .ops import (evict_argmin, launch_counts, next_use, on_cuda,
-                  reset_launch_counts)
+from .ops import (evict_argmin, interval_occupancy, launch_counts, next_use,
+                  occupancy_feasible, on_cuda, reset_launch_counts)
 
-__all__ = ["ops", "ref", "evict_argmin", "next_use", "on_cuda",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["ops", "ref", "evict_argmin", "next_use", "interval_occupancy",
+           "occupancy_feasible", "on_cuda", "launch_counts",
+           "reset_launch_counts"]

@@ -41,6 +41,14 @@ _SIGNATURES = {
     "next_use_launch": ([_vp, _vp, _vp, ctypes.c_int, ctypes.c_int,
                          ctypes.c_int, _vp], ctypes.c_int),
     "next_use_max_shared_entries": ([], ctypes.c_int),
+    # deltas, deltas_int32, occ, scratch, T, stream
+    "interval_occupancy_launch": ([_vp, ctypes.c_int, _vp, _vp,
+                                   ctypes.c_longlong, _vp], ctypes.c_int),
+    # deltas, deltas_int32, zcap, occ, excess, scratch, T, stream
+    "occupancy_feasible_launch": ([_vp, ctypes.c_int, _vp, _vp, _vp, _vp,
+                                   ctypes.c_longlong, _vp], ctypes.c_int),
+    "occupancy_scan_scratch_floats": ([ctypes.c_longlong], ctypes.c_longlong),
+    "occupancy_scan_error_chain": ([ctypes.c_longlong], ctypes.c_longlong),
 }
 
 

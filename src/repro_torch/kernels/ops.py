@@ -12,13 +12,18 @@ import torch
 
 from . import ref
 from .evict_argmin import evict_argmin_cuda
+from .interval_occupancy import (interval_occupancy_cuda,
+                                 occupancy_feasible_cuda)
 from .next_use import next_use_cuda
 
-__all__ = ["on_cuda", "evict_argmin", "next_use", "launch_counts",
-           "reset_launch_counts", "KERNELS"]
+__all__ = ["on_cuda", "evict_argmin", "next_use", "interval_occupancy",
+           "occupancy_feasible", "launch_counts", "reset_launch_counts",
+           "KERNELS"]
 
 # name -> wrapper; each wrapper counts its own launches in `.launches`
-KERNELS = {"evict_argmin": evict_argmin_cuda, "next_use": next_use_cuda}
+KERNELS = {"evict_argmin": evict_argmin_cuda, "next_use": next_use_cuda,
+           "interval_occupancy": interval_occupancy_cuda,
+           "occupancy_feasible": occupancy_feasible_cuda}
 
 
 def on_cuda() -> bool:
@@ -43,6 +48,26 @@ def next_use(ids: torch.Tensor, num_objects: int, *,
     if _use_kernel(ids, use_kernel):
         return next_use_cuda(ids, num_objects)
     return ref.next_use_ref(ids, num_objects)
+
+
+def interval_occupancy(deltas: torch.Tensor, *,
+                       use_kernel: bool | None = None) -> torch.Tensor:
+    """Occupancy profile (inclusive float32 prefix sum), eq. (2)'s LHS."""
+    if _use_kernel(deltas, use_kernel):
+        return interval_occupancy_cuda(deltas)
+    return ref.interval_occupancy_ref(deltas)
+
+
+def occupancy_feasible(deltas: torch.Tensor, zcap: torch.Tensor, *,
+                       use_kernel: bool | None = None):
+    """Schedule feasibility: (occupancy profile, max excess over zcap).
+
+    The check of cost-FOO's rounded schedule: deltas are the accepted
+    intervals' range-adds, zcap the per-instant caps.
+    """
+    if _use_kernel(deltas, use_kernel):
+        return occupancy_feasible_cuda(deltas, zcap)
+    return ref.occupancy_feasible_ref(deltas, zcap)
 
 
 def launch_counts() -> dict[str, int]:

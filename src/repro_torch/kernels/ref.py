@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["evict_argmin_ref", "next_use_ref", "BIG", "INT_BIG"]
+__all__ = ["evict_argmin_ref", "next_use_ref", "interval_occupancy_ref",
+           "occupancy_feasible_ref", "BIG", "INT_BIG"]
 
 BIG = 3.4e38          # score of an entry outside the mask (float32)
 INT_BIG = 2**31 - 1   # touch of an entry outside the tie set
@@ -51,3 +52,25 @@ def next_use_ref(ids: torch.Tensor, num_objects: int | None = None
     nxt = torch.empty(T, dtype=torch.int64, device=ids.device)
     nxt[order] = succ
     return nxt.to(torch.int32)
+
+
+def interval_occupancy_ref(deltas: torch.Tensor) -> torch.Tensor:
+    """Inclusive float32 prefix sum of (T,) occupancy deltas: the occupancy
+    profile occ(p), the LHS of eq. (2). int32 deltas are cast first.
+
+    PyTorch's cumsum adds float32 in float64 on the CPU and in float32 on
+    the card; where every partial sum is exact in float32 (integer-valued
+    deltas below 2^24) the two agree bit for bit.
+    """
+    return torch.cumsum(deltas.float(), 0)
+
+
+def occupancy_feasible_ref(deltas: torch.Tensor, zcap: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Occupancy profile and its worst excess over the per-instant cap.
+
+    Returns (occ (T,) float32, max over p of occ[p] - zcap[p] as a 0-d
+    float32 tensor); the schedule fits iff the excess is within tolerance.
+    """
+    occ = interval_occupancy_ref(deltas)
+    return occ, torch.amax(occ - zcap.float())

@@ -132,3 +132,28 @@ def test_carry_trace_and_costs():
     np.testing.assert_array_equal(carry.to_numpy(c), cm.astype(np.float32))
     _, ones = carry.trace_tensors(tr.ids, None, "cpu", num_objects=100)
     assert ones.shape == (100,) and bool((ones == 1).all())
+
+
+@pytest.mark.parametrize("gen,kw", _GENERATORS)
+def test_interval_arrays_and_caps_match(gen, kw):
+    """build_interval_arrays, interval_deltas and zcap_profile, which
+    cost-FOO builds its LP and its schedule check from, equal the
+    originals."""
+    tr = getattr(rc, gen)(**kw)
+    costs = rc.miss_costs(tr.sizes, rc.PRICE_VECTORS["gcs_internet"])
+    a = r_opt.build_interval_arrays(tr.ids, costs, tr.sizes)
+    b = t_opt.build_interval_arrays(tr.ids, costs, tr.sizes)
+    assert len(a) == len(b) == 5
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
+    t, u, _, _, size = a
+    T = len(tr.ids)
+    keep = np.random.default_rng(1).random(len(t)) < 0.5
+    np.testing.assert_array_equal(
+        r_opt.interval_deltas(t[keep], u[keep], size[keep], T),
+        t_opt.interval_deltas(t[keep], u[keep], size[keep], T))
+    for B in (float(np.median(tr.sizes)), float(tr.sizes.sum())):
+        np.testing.assert_array_equal(r_opt.zcap_profile(tr.ids, tr.sizes, B),
+                                      t_opt.zcap_profile(tr.ids, tr.sizes, B))
+

@@ -9,10 +9,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import POLICY_WEIGHTS, sweep_torch
+from repro_torch.core import (POLICY_WEIGHTS, PRICE_VECTORS, cost_foo,
+                              miss_costs, sweep_torch, zipf_trace)
 from repro_torch.core.trace import next_use_indices
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.evict_argmin import evict_argmin_cuda
+from repro_torch.kernels.interval_occupancy import (error_chain,
+                                                    interval_occupancy_cuda,
+                                                    occupancy_feasible_cuda)
 from repro_torch.kernels.next_use import next_use_cuda, shared_table_entries
 
 pytestmark = pytest.mark.cuda
@@ -102,10 +106,120 @@ def test_sweep_on_card_matches_cpu(cuda):
     policies = list(POLICY_WEIGHTS)
     ops.reset_launch_counts()
     got = sweep_torch(policies, ids, cost_matrix, budgets, num_objects=24)
-    assert ops.launch_counts() == {"evict_argmin": 250, "next_use": 1}
+    assert ops.launch_counts() == {"evict_argmin": 250, "next_use": 1,
+                                   "interval_occupancy": 0,
+                                   "occupancy_feasible": 0}
     plain = sweep_torch(policies, ids, cost_matrix, budgets, num_objects=24,
                         use_kernel=False)
     want = sweep_torch(policies, ids, cost_matrix, budgets, num_objects=24,
                        device="cpu")
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(plain, want)
+
+
+_SCAN_T = [1, 31, 4095, 4096, 4097, 200_000, 2**24 + 3]
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("T", _SCAN_T)
+def test_scan_kernels_match_plain_on_integer_deltas(cuda, T, dtype):
+    """Integer-valued deltas keep every partial sum exact in float32, so the
+    kernels equal the plain versions bit for bit; two runs give equal bits."""
+    rng = np.random.default_rng(T)
+    d = torch.tensor(rng.integers(-3, 4, T).astype(np.float32), device=cuda)
+    d = d.to(torch.int32) if dtype == "int32" else d
+    z = torch.tensor(rng.integers(0, 8, T).astype(np.float32), device=cuda)
+    occ, ex = occupancy_feasible_cuda(d, z)
+    occ2, ex2 = occupancy_feasible_cuda(d, z)
+    scan = interval_occupancy_cuda(d)
+    w_occ, w_ex = ref.occupancy_feasible_ref(d, z)
+    assert torch.equal(occ, w_occ) and torch.equal(scan, w_occ)
+    assert torch.equal(ex, w_ex)
+    assert torch.equal(_bits(occ), _bits(occ2)) and \
+        torch.equal(_bits(ex), _bits(ex2))
+
+
+def _byte_deltas(rng, T, dtype):
+    """Range-adds of a schedule of byte-sized intervals (sizes up to the
+    94 MB of wiki_cdn_like's largest object) in float64, cast to the
+    kernel's input type."""
+    n = max(1, T // 4)
+    t = rng.integers(0, T, n)
+    u = np.minimum(t + rng.geometric(1e-3, n), T)
+    size = np.minimum(rng.lognormal(11.5, 2.5, n), 9.4e7)
+    d = np.zeros(T)
+    np.add.at(d, t, size)
+    np.add.at(d, u[u < T], -size[u < T])
+    if dtype == "int32":
+        return np.rint(d).astype(np.int32)
+    return d.astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("T", _SCAN_T)
+def test_scan_kernels_within_rounding_bound_on_byte_sizes(cuda, T, dtype):
+    """With byte sizes partial sums round. Each occ[p] must lie within
+    k * 2^-24 * sum_{q<=p} |d_q| of the exact prefix sum (k from the
+    kernel's source), and the excess within that bound plus one rounding
+    of occ - zcap. The float32 plain version is no yardstick here: PyTorch's
+    scan on the card chains its tiles and has no such bound."""
+    rng = np.random.default_rng(T + 1)
+    d = _byte_deltas(rng, T, dtype)
+    d32 = d.astype(np.float32).astype(np.float64)   # what the kernel adds
+    exact = np.cumsum(d32)
+    z = (exact + rng.normal(0, 1e6, T)).astype(np.float32)
+    d_t = torch.tensor(d, device=cuda)
+    occ, ex = occupancy_feasible_cuda(d_t, torch.tensor(z, device=cuda))
+    occ2, ex2 = occupancy_feasible_cuda(d_t, torch.tensor(z, device=cuda))
+    scan = interval_occupancy_cuda(d_t)
+    assert torch.equal(_bits(occ), _bits(occ2)) and \
+        torch.equal(_bits(ex), _bits(ex2))
+    assert torch.equal(_bits(scan), _bits(occ))
+    got = occ.cpu().numpy().astype(np.float64)
+    bound = error_chain(T) * 2.0**-24 * np.cumsum(np.abs(d32))
+    assert (np.abs(got - exact) <= bound).all(), \
+        float(np.max(np.abs(got - exact) - bound))
+    gap = got - z.astype(np.float64)
+    ex_exact = float(np.max(exact - z.astype(np.float64)))
+    ex_bound = float(bound.max() + 2.0**-24 * np.abs(gap).max())
+    assert abs(float(ex) - ex_exact) <= ex_bound
+
+
+def test_scan_kernels_nan_and_bad_inputs(cuda):
+    d = torch.tensor([1.0, float("nan"), 2.0], device=cuda)
+    z = torch.zeros(3, device=cuda)
+    _, ex = occupancy_feasible_cuda(d, z)
+    _, w_ex = ref.occupancy_feasible_ref(d, z)
+    assert bool(torch.isnan(ex)) and bool(torch.isnan(w_ex))
+    empty = torch.zeros(0, device=cuda)
+    with pytest.raises(ValueError):
+        occupancy_feasible_cuda(empty, empty)
+    with pytest.raises(ValueError):
+        interval_occupancy_cuda(empty)
+    with pytest.raises(ValueError):
+        interval_occupancy_cuda(torch.zeros(4, dtype=torch.float64,
+                                            device=cuda))
+    with pytest.raises(ValueError):
+        occupancy_feasible_cuda(torch.zeros(4, device=cuda),
+                                torch.zeros(5, device=cuda))
+    with pytest.raises(ValueError):
+        interval_occupancy_cuda(torch.zeros(8, device=cuda)[::2])
+
+
+def test_cost_foo_validate_on_card_matches_cpu(cuda):
+    tr = zipf_trace(n_objects=120, n_requests=6000, sigma=1.2,
+                    mean_size=32 * 1024, seed=11)
+    costs = miss_costs(tr.sizes, PRICE_VECTORS["gcs_internet"])
+    B = float(np.quantile(tr.sizes, 0.8) * 30)
+    ops.reset_launch_counts()
+    card = cost_foo(tr, costs, B, policies=("gdsf",), validate=True)
+    assert ops.launch_counts()["occupancy_feasible"] == 1
+    host = cost_foo(tr, costs, B, policies=("gdsf",), validate=True,
+                    device="cpu")
+    assert (card.lower, card.upper, card.bracket) == \
+        (host.lower, host.upper, host.bracket)
+

@@ -134,7 +134,9 @@ def test_dispatch_on_cpu_uses_plain_version():
     assert int(gi) == 0
     ids = torch.tensor([0, 1, 0], dtype=torch.int32)
     assert ops.next_use(ids, 2).tolist() == [2, 3, 3]
-    assert ops.launch_counts() == {"evict_argmin": 0, "next_use": 0}
+    assert ops.launch_counts() == {"evict_argmin": 0, "next_use": 0,
+                                   "interval_occupancy": 0,
+                                   "occupancy_feasible": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
