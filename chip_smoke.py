@@ -54,7 +54,14 @@ POLICIES = ["lru", "lfu", "gds", "gdsf", "belady", "cost_belady"]
 PRICES = list(PRICE_VECTORS)
 PARITY_BUDGETS = np.array([32, 64, 128, 256])
 FULL_BUDGETS = np.array([320, 640, 1280, 2560])
-SCAN_T = [1, 31, 4095, 4096, 4097, 200_000, 2**24 + 3]
+SCAN_TILE = 4096   # items a block of the scan takes above 2^21 items
+SCAN_T = [1, 31, 4095, 4096, 4097, 200_000, 2**24 + 3,
+          # tile boundaries (2048-item tiles up to 2^21 items, 4096 above), the
+          # carry tree's level-1 nodes (256 tiles) and the switch of tile size
+          2 * SCAN_TILE - 1, 2 * SCAN_TILE, 2 * SCAN_TILE + 1,
+          2**19 - 1, 2**19, 2**19 + 1, 2**20 - 1, 2**20, 2**20 + 1,
+          2**21, 2**21 + 1, 3 * 2**20 - 1, 3 * 2**20, 3 * 2**20 + 1]
+SCAN_T3 = 65536 * SCAN_TILE + SCAN_TILE + 1   # a third level in the tree
 SCAN_BYTES_T = 2**26        # 256 MiB an array: far past the 50 MB L2
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
 NO_LAUNCHES = {name: 0 for name in ops.KERNELS}
@@ -214,6 +221,64 @@ def scan_checks(rng, dev, errs: dict, cases: list) -> dict:
     return worst
 
 
+def scan_deep_checks(rng, dev, errs: dict, cases: list) -> None:
+    """50 repeated calls on byte sizes give equal bits (the race check:
+    carries have a fixed association); past 2^28 items the tree's third
+    level is formed and read; k of the rounding bound is no larger than
+    the replaced design's at any size."""
+    T = 2**24 + 3
+    d = torch.tensor(byte_deltas(rng, T, "float32"), device=dev)
+    z = torch.tensor(rng.normal(0, 1e9, T).astype(np.float32), device=dev)
+    occ, ex = occupancy_feasible_cuda(d, z)
+    scan = interval_occupancy_cuda(d)
+    for _ in range(50):
+        o2, e2 = occupancy_feasible_cuda(d, z)
+        s2 = interval_occupancy_cuda(d)
+        check(same_bits(o2, occ) and same_bits(e2, ex) and same_bits(s2, scan),
+              "two runs differ: 50 repeats at T=2^24+3 byte sizes")
+    check(same_bits(scan, occ), "the two scans differ: 50 repeats")
+    cases.append("scan 50 repeats T=2^24+3 byte sizes, equal bits")
+    del d, z, occ, scan, o2, s2
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    d = torch.randint(-3, 4, (SCAN_T3,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    z = torch.randint(0, 8, (SCAN_T3,), generator=gen, device=dev,
+                      dtype=torch.int32).float()
+    occ, ex = occupancy_feasible_cuda(d, z)
+    w_occ, w_ex = ref.occupancy_feasible_ref(d, z)
+    scan = interval_occupancy_cuda(d.float())
+    torch.cuda.synchronize()
+    check(torch.equal(occ, w_occ) and torch.equal(ex, w_ex),
+          f"occupancy_feasible differs from plain: T={SCAN_T3}")
+    check(torch.equal(scan, w_occ),
+          f"interval_occupancy differs from plain: T={SCAN_T3}")
+    errs["occupancy_feasible"] = max(errs["occupancy_feasible"],
+                                     float((occ - w_occ).abs().max()))
+    errs["interval_occupancy"] = max(errs["interval_occupancy"],
+                                     float((scan - w_occ).abs().max()))
+    cases.append(f"scan T={SCAN_T3} (three tree levels) integer deltas")
+    del d, z, occ, w_occ, scan
+    torch.cuda.empty_cache()
+
+    for T in SCAN_T + [SCAN_BYTES_T]:
+        tiles = -(-T // SCAN_TILE)
+        check(error_chain(T) <= 2 * -(-tiles // 1024) + 36,
+              f"rounding bound looser than the replaced design's at T={T}")
+    cases.append("error_chain(T) <= 2*ceil(tiles/1024) + 36 at every T")
+
+
+def slice_ends(N: int, row: int, cluster: int = 8) -> list:
+    """Index of the last entry of each cluster rank's slice of 16-entry mask
+    words in row `row` of a (C, N) mask with an aligned base (the split of
+    csrc/evict_argmin.cu)."""
+    head = min(N, (16 - (row * N) % 16) % 16)
+    words = (N - head) // 16
+    return [head + 16 * (words * (r + 1) // cluster) - 1
+            for r in range(cluster)
+            if words * (r + 1) // cluster > words * r // cluster]
+
+
 def phase_kernel_checks(seed: int, dev) -> dict:
     rng = np.random.default_rng(seed)
     errs = {name: 0.0 for name in ops.KERNELS}
@@ -255,6 +320,33 @@ def phase_kernel_checks(seed: int, dev) -> dict:
     argmin_case("touch near 2^31", s, t, m)
     s1, t1, m1 = s[3].contiguous(), t[3].contiguous(), m[3].contiguous()
     argmin_case("1-D vector", s1, t1, m1)
+    for N in (1, 15, 16, 17, 20001):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            for shared in (True, False):
+                s, t, m = argmin_inputs(rng, 9, N, dtype, dev, t_hi=50,
+                                        shared_touch=shared)
+                m[0] = False                      # an empty row
+                m[1] = False
+                m[1, N // 2] = True               # one cached entry
+                argmin_case(f"N={N} {name} {'shared' if shared else 'per-row'}"
+                            " touch, an empty row, a one-entry row", s, t, m)
+    for N in (20000, 20001):
+        C = 16
+        s = rng.integers(1, 8, (C, N)).astype(np.float32)
+        for r in range(C):
+            ends = slice_ends(N, r)
+            s[r, ends[r % len(ends)]] = -1.0
+        argmin_case(f"N={N} winner in the last entry of rank r%8's slice",
+                    torch.tensor(s, device=dev),
+                    torch.zeros(N, dtype=torch.int32, device=dev),
+                    torch.ones(C, N, dtype=torch.bool, device=dev))
+    s = torch.full((3, 4099), float("inf"), device=dev)
+    m = torch.zeros(3, 4099, dtype=torch.bool, device=dev)
+    m[0, 4000], m[1, 17], m[2, 9] = True, True, True
+    s[1, 17], s[2, 9] = 3.4e38, 1.0
+    argmin_case("cached scores at or above 3.4e38 (dense rescan)", s,
+                torch.arange(4099, 0, -1, dtype=torch.int32, device=dev), m)
 
     limit = shared_table_entries()
     for label, T, N, ids in [
@@ -281,6 +373,7 @@ def phase_kernel_checks(seed: int, dev) -> dict:
         cases.append(f"next_use {label} ({'shared' if N <= limit else 'global'}"
                      " table)")
     scan_bytes = scan_checks(rng, dev, errs, cases)
+    scan_deep_checks(rng, dev, errs, cases)
     emit("kernel_checks", cases=cases, max_abs_err=errs,
          scan_byte_sizes=scan_bytes,
          scan_error_chain={T: error_chain(T) for T in SCAN_T},
@@ -612,6 +705,7 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
         plain_ms = time_ms(plain, reps=reps)
         library_ms = time_ms(library, reps=reps) if library else None
         on_card = device_time(kernel)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rows.append(dict(
             name=name, **KERNEL_INFO[name], launches=launches[name],
             max_abs_err=errs[name], tolerance=TOLERANCE[name], ms=ms,
@@ -619,7 +713,9 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
             device_kernels=on_card["kernels"],
             plain_device_ms=device_time(plain)["ms"],
             library_device_ms=device_time(library)["ms"] if library else None,
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            bound_ms=bound_ms, bound_by="bytes",
+            bound_share=(bound_ms / on_card["ms"] if on_card["kernels"]
+                         else "not measured"),
             bound_note=f"{nbytes} bytes this data needs over 3.35 TB/s",
             dense_bound_ms=dense_bytes.get(name, nbytes) / HBM_BYTES_PER_S
             * 1e3,

@@ -21,8 +21,9 @@ def evict_argmin_cuda(scores: torch.Tensor, touch: torch.Tensor,
     by every row) or the shape of scores; mask: bool, the shape of scores.
     All contiguous CUDA tensors on one device. Returns (index int32, score
     float32), 0-d for a vector and (C,) for a batch, with the semantics of
-    `ref.evict_argmin_ref`. Launches on the current stream, does not
-    synchronise, and raises if the launch is refused.
+    `ref.evict_argmin_ref`. Launches one kernel on the current stream, a
+    cluster of 8 CTAs a row, does not synchronise, and raises if the launch
+    is refused.
     """
     for name, x in (("scores", scores), ("touch", touch), ("mask", mask)):
         if not x.is_cuda:

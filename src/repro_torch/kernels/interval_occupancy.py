@@ -44,6 +44,27 @@ def _check(fn: str, deltas: torch.Tensor, zcap: torch.Tensor | None) -> None:
                          "raises too)")
 
 
+# (device index, stream, floats) -> the scan's scratch: zeroed once (one
+# fill on the first call of a size on a stream), then left by every call
+# as the next one needs it (carries tagged with the call's number, counters
+# that only grow). A scratch serves one stream, so two streams never share
+# carries. The oldest is dropped past _KEEP sizes; the caching allocator
+# reuses its memory in stream order.
+_scratch: dict = {}
+_KEEP = 16
+
+
+def _scratch_for(lib, T: int, dev: torch.device, stream: int) -> torch.Tensor:
+    n = lib.occupancy_scan_scratch_floats(T)
+    key = (dev.index, stream, n)
+    buf = _scratch.get(key)
+    if buf is None:
+        if len(_scratch) >= _KEEP:
+            _scratch.pop(next(iter(_scratch)))
+        buf = _scratch[key] = torch.zeros(n, dtype=torch.float32, device=dev)
+    return buf
+
+
 def _launch(deltas: torch.Tensor, zcap: torch.Tensor | None):
     lib = _build.library()
     T = deltas.numel()
@@ -51,9 +72,8 @@ def _launch(deltas: torch.Tensor, zcap: torch.Tensor | None):
     with torch.cuda.device(dev):
         occ = torch.empty(T, dtype=torch.float32, device=dev)
         excess = torch.empty((), dtype=torch.float32, device=dev)
-        scratch = torch.empty(lib.occupancy_scan_scratch_floats(T),
-                              dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = _scratch_for(lib, T, dev, stream)
         is_int = int(deltas.dtype == torch.int32)
         if zcap is None:
             err = lib.interval_occupancy_launch(
@@ -73,8 +93,8 @@ def interval_occupancy_cuda(deltas: torch.Tensor) -> torch.Tensor:
 
     deltas: contiguous (T,) float32 or int32 CUDA tensor, T >= 1. Returns
     (T,) float32 with the semantics of `ref.interval_occupancy_ref`.
-    Launches on the current stream (three device kernels per call), does
-    not synchronise, and raises if a launch is refused.
+    Launches one device kernel on the current stream, does not
+    synchronise, and raises if the launch is refused.
     """
     _check("interval_occupancy_cuda", deltas, None)
     occ, _ = _launch(deltas, None)
@@ -89,8 +109,8 @@ def occupancy_feasible_cuda(deltas: torch.Tensor, zcap: torch.Tensor
     deltas: contiguous (T,) float32 or int32 CUDA tensor, T >= 1; zcap:
     (T,) float32 on the same device. Returns (occ (T,) float32, excess 0-d
     float32) with the semantics of `ref.occupancy_feasible_ref`. Launches
-    on the current stream (four device kernels per call), does not
-    synchronise, and raises if a launch is refused.
+    one device kernel on the current stream, does not synchronise, and
+    raises if the launch is refused.
     """
     _check("occupancy_feasible_cuda", deltas, zcap)
     occ, excess = _launch(deltas, zcap)

@@ -65,6 +65,82 @@ def test_evict_argmin_kernel_nan_and_signed_zero(cuda):
     assert torch.equal(gv, wv)
 
 
+def _slice_ends(N, row):
+    """Index of the last entry of each cluster rank's slice of mask words in
+    row `row` of a (C, N) bool mask whose base is 16-byte aligned (as a
+    fresh CUDA tensor's is): the kernel's split, in csrc/evict_argmin.cu."""
+    head = min(N, (16 - (row * N) % 16) % 16)
+    words = (N - head) // 16
+    return [head + 16 * (words * (r + 1) // 8) - 1 for r in range(8)
+            if words * (r + 1) // 8 > words * r // 8]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [1, 15, 16, 17, 20001])
+def test_evict_argmin_kernel_row_lengths(cuda, N, dtype):
+    """Rows whose mask starts off 16 bytes (scalar head and tail), a row with
+    one cached entry, an empty row with per-row touch, bf16 with odd N."""
+    rng = np.random.default_rng(N + 11)
+    C = 9
+    s = torch.tensor(rng.integers(-8, 8, (C, N)).astype(np.float32),
+                     device=cuda).to(_TORCH[dtype])
+    mask = torch.tensor(rng.random((C, N)) < 0.3, device=cuda)
+    mask[0] = False                       # an empty row
+    mask[1] = False
+    mask[1, N // 2] = True                # a single cached entry
+    for touch in (
+            torch.tensor(rng.integers(0, 50, N).astype(np.int32), device=cuda),
+            torch.tensor(rng.integers(0, 50, (C, N)).astype(np.int32),
+                         device=cuda)):
+        gi, gv = evict_argmin_cuda(s, touch, mask)
+        wi, wv = ref.evict_argmin_ref(s, touch, mask)
+        torch.cuda.synchronize()
+        assert torch.equal(gi, wi) and torch.equal(gv, wv)
+        assert int(gi[1]) == N // 2
+
+
+@pytest.mark.parametrize("N", [20000, 20001])
+def test_evict_argmin_kernel_winner_at_slice_ends(cuda, N):
+    """Row r's only minimum sits in the last entry of cluster rank r % 8's
+    slice; with N = 20001 the rows' masks start at every offset mod 16."""
+    C = 16
+    rng = np.random.default_rng(N)
+    s = rng.integers(1, 8, (C, N)).astype(np.float32)
+    mask = np.ones((C, N), bool)
+    want = []
+    for r in range(C):
+        ends = _slice_ends(N, r)
+        j = ends[r % len(ends)]
+        s[r, j] = -1.0
+        want.append(j)
+    s_t = torch.tensor(s, device=cuda)
+    m_t = torch.tensor(mask, device=cuda)
+    touch = torch.zeros(N, dtype=torch.int32, device=cuda)
+    gi, gv = evict_argmin_cuda(s_t, touch, m_t)
+    wi, _ = ref.evict_argmin_ref(s_t, touch, m_t)
+    assert gi.tolist() == wi.tolist() == want
+    assert gv.tolist() == [-1.0] * C
+
+
+def test_evict_argmin_kernel_scores_at_or_above_big(cuda):
+    """A cached entry scoring 3.4e38 or +inf ties or loses to the uncached
+    ones: the kernel then rescans the row densely, as the plain version
+    takes the minimum over all N."""
+    N = 4099
+    s = torch.full((3, N), float("inf"), device=cuda)
+    mask = torch.zeros(3, N, dtype=torch.bool, device=cuda)
+    mask[0, 4000] = True                  # +inf: any uncached entry wins
+    mask[1, 17] = True
+    s[1, 17] = 3.4e38                     # ties the uncached entries' score
+    mask[2, 9] = True
+    s[2, 9] = 1.0
+    touch = torch.arange(N, 0, -1, dtype=torch.int32, device=cuda)
+    gi, gv = evict_argmin_cuda(s, touch, mask)
+    wi, wv = ref.evict_argmin_ref(s, touch, mask)
+    assert gi.tolist() == wi.tolist() and torch.equal(gv, wv)
+    assert gi.tolist() == [N - 1, N - 1, 9]
+
+
 @pytest.mark.parametrize("T,N", [(200_000, 20_000), (1, 1), (1000, 1),
                                  (4097, 4097), (5000, 100_000)])
 def test_next_use_kernel_matches_plain(cuda, T, N):
@@ -117,7 +193,13 @@ def test_sweep_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(plain, want)
 
 
-_SCAN_T = [1, 31, 4095, 4096, 4097, 200_000, 2**24 + 3]
+_TILE = 4096   # the replaced design's tile; the carry tree has radix 256
+_SCAN_T = [1, 31, 4095, 4096, 4097, 200_000, 2**24 + 3,
+           # tile boundaries (2048-item tiles up to 2^21 items, 4096 above), the
+           # carry tree's level-1 nodes (256 tiles) and the switch of tile size
+           2 * _TILE - 1, 2 * _TILE, 2 * _TILE + 1,
+           2**19 - 1, 2**19, 2**19 + 1, 2**20 - 1, 2**20, 2**20 + 1,
+           2**21, 2**21 + 1, 3 * 2**20 - 1, 3 * 2**20, 3 * 2**20 + 1]
 
 
 def _bits(x):
@@ -187,6 +269,64 @@ def test_scan_kernels_within_rounding_bound_on_byte_sizes(cuda, T, dtype):
     ex_exact = float(np.max(exact - z.astype(np.float64)))
     ex_bound = float(bound.max() + 2.0**-24 * np.abs(gap).max())
     assert abs(float(ex) - ex_exact) <= ex_bound
+
+
+def test_scan_kernels_repeat_bits_on_byte_sizes(cuda):
+    """50 calls at 2^24 + 3 items of byte sizes give equal bits: carries
+    have a fixed association, whatever order the blocks publish in."""
+    T = 2**24 + 3
+    rng = np.random.default_rng(3)
+    d = torch.tensor(_byte_deltas(rng, T, "float32"), device=cuda)
+    z = torch.tensor(rng.normal(0, 1e9, T).astype(np.float32), device=cuda)
+    occ, ex = occupancy_feasible_cuda(d, z)
+    first = interval_occupancy_cuda(d)
+    for _ in range(50):
+        o2, e2 = occupancy_feasible_cuda(d, z)
+        assert torch.equal(_bits(o2), _bits(occ)) and \
+            torch.equal(_bits(e2), _bits(ex))
+        assert torch.equal(_bits(interval_occupancy_cuda(d)), _bits(first))
+    assert torch.equal(_bits(first), _bits(occ))
+
+
+def test_scan_kernels_three_tree_levels(cuda):
+    """Past 256^2 tiles (2^28 items) the carry tree has a third level, whose
+    nodes are formed by the block that completes their last child."""
+    T = 65536 * _TILE + _TILE + 1
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    d = torch.randint(-3, 4, (T,), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    z = torch.randint(0, 8, (T,), generator=gen, device=cuda,
+                      dtype=torch.int32).float()
+    occ, ex = occupancy_feasible_cuda(d, z)
+    w_occ, w_ex = ref.occupancy_feasible_ref(d, z)
+    assert torch.equal(occ, w_occ) and torch.equal(ex, w_ex)
+    assert torch.equal(interval_occupancy_cuda(d.float()), w_occ)
+
+
+def test_scan_kernels_interleaved_sizes_and_streams(cuda):
+    """The scratch the wrapper keeps (one per device, stream and size) is
+    left ready for the next call, whatever sizes and streams come between."""
+    rng = np.random.default_rng(9)
+    sizes = [5000, 300_001, 5000, 1, 300_001, 4097]
+    data = [torch.tensor(rng.integers(-3, 4, T).astype(np.float32),
+                         device=cuda) for T in sizes]
+    side = torch.cuda.Stream()
+    for rep in range(3):
+        for d in data:
+            with torch.cuda.stream(side if rep == 1 else
+                                   torch.cuda.current_stream()):
+                got = interval_occupancy_cuda(d)
+                want = ref.interval_occupancy_ref(d)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("T", _SCAN_T + [2**26])
+def test_scan_error_chain_no_looser_than_reduce_then_scan(cuda, T):
+    """k of the rounding bound is no larger than that of the three-kernel
+    reduce-then-scan this design replaced, 2*ceil(tiles/1024) + 36."""
+    tiles = -(-T // _TILE)
+    assert error_chain(T) <= 2 * -(-tiles // 1024) + 36
 
 
 def test_scan_kernels_nan_and_bad_inputs(cuda):
