@@ -44,8 +44,8 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.evict_argmin import evict_argmin_cuda  # noqa: E402
 from repro_torch.kernels.interval_occupancy import (  # noqa: E402
     error_chain, interval_occupancy_cuda, occupancy_feasible_cuda)
-from repro_torch.kernels.next_use import (next_use_cuda,  # noqa: E402
-                                          shared_table_entries)
+from repro_torch.kernels.next_use import (digit_passes,  # noqa: E402
+                                          next_use_cuda, plan)
 
 # the module (the package's `cost_foo` names the function)
 cost_foo_module = importlib.import_module("repro_torch.core.cost_foo")
@@ -63,6 +63,7 @@ SCAN_T = [1, 31, 4095, 4096, 4097, 200_000, 2**24 + 3,
           2**21, 2**21 + 1, 3 * 2**20 - 1, 3 * 2**20, 3 * 2**20 + 1]
 SCAN_T3 = 65536 * SCAN_TILE + SCAN_TILE + 1   # a third level in the tree
 SCAN_BYTES_T = 2**26        # 256 MiB an array: far past the 50 MB L2
+NU_BYTES_T, NU_BYTES_N = 2**26, 2**22   # next_use's large timing shape
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
 NO_LAUNCHES = {name: 0 for name in ops.KERNELS}
 
@@ -279,6 +280,118 @@ def slice_ends(N: int, row: int, cluster: int = 8) -> list:
             if words * (r + 1) // cluster > words * r // cluster]
 
 
+def uniform_ids(seed: int, T: int, N: int, dev) -> torch.Tensor:
+    """(T,) int32 ids uniform in [0, N) from a seeded generator on the card:
+    no locality at all, the radix sort's worst case."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, N, (T,), generator=gen, device=dev,
+                         dtype=torch.int32)
+
+
+NU_PATHS = ("one_wave", "direct", "grouped")
+
+
+def next_use_on_path(path: str, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """next_use_cuda with its plan forced to `path` (one_wave only where the
+    card holds every tile at once): times the paths the plan does not pick
+    at this T. Counts no launch."""
+    nu_module = importlib.import_module("repro_torch.kernels.next_use")
+    chosen, launches = nu_module.plan, next_use_cuda.launches
+    T = ids.numel()
+
+    def forced(T_, N_, one_wave_items=0):
+        p = chosen(T_, N_, T_ if path == "one_wave" else 0)
+        if path != "one_wave" and p["path"] != path:
+            limit = T_ if path == "direct" else T_ - 1
+            saved = nu_module.PARTITION_T
+            nu_module.PARTITION_T = limit
+            try:
+                p = chosen(T_, N_, 0)
+            finally:
+                nu_module.PARTITION_T = saved
+        return p
+
+    nu_module.plan = forced
+    try:
+        out = next_use_cuda(ids, n)
+    finally:
+        nu_module.plan = chosen
+        next_use_cuda.launches = launches
+    check(T == 0 or forced(T, n)["path"] == path, f"not forced to {path}")
+    return out
+
+
+def next_use_checks(seed: int, rng, dev, errs: dict, cases: list) -> dict:
+    """next_use on the card equal to its plain version on the card and to
+    the host's next_use_indices, on inputs the radix design can get wrong:
+    every pass count (1 to 4, from the largest id), ids far below N, sorted
+    ids, the tile edges, each path at and past its limits (one wave, direct,
+    grouped), a ragged tile past 2^24, the full trace's Zipf ids, the 2^26
+    timing shape, and a big call, a small one and a big one again on one
+    stream (no state leaks between calls). Returns each case's plan."""
+    one_wave = _build.library().next_use_one_wave_items()
+    tile = plan(1000, 300)["tile_items"]        # the tile below 2^20 items
+    full = twemcache_like(n_objects=20000, n_requests=200_000, seed=seed)
+    few = rng.integers(0, 5000, 100_000)
+    inputs = [
+        ("T=200000 N=20000", rng.integers(0, 20_000, 200_000), 20_000),
+        ("T=1 N=1", np.zeros(1), 1),
+        ("single id (one pass)", np.zeros(70_001), 1),
+        ("50000 distinct ids", rng.permutation(50_000), 50_000),
+        ("N=2^30, every id < 1000", rng.integers(0, 1000, 200_000), 2**30),
+        ("ids sorted ascending", np.sort(few), 5000),
+        ("ids sorted descending", np.sort(few)[::-1], 5000),
+        ("the full trace's Zipf ids", full.ids, full.num_objects),
+    ]
+    for top in (255, 256, 65_535, 65_536, 2**24):
+        ids = rng.integers(0, top + 1, 100_000)
+        ids[rng.integers(0, 100_000)] = top
+        inputs.append((f"max id {top}", ids, top + 1))
+    for T in (tile - 1, tile, tile + 1, 2 * tile + 1, 2**24 + 3):
+        N = 300 if T < 2**24 else 2**20
+        inputs.append((f"T={T}", rng.integers(0, N, T), N))
+    for label, T in [("one-wave limit", one_wave),
+                     ("one past the one-wave limit (direct)", one_wave + 1),
+                     ("2^22, the direct limit", 2**22),
+                     ("2^22 + 1 (grouped)", 2**22 + 1)]:
+        inputs.append((f"T={T}, {label}", rng.integers(0, 2**20, T), 2**20))
+    plans = {}
+
+    def one(label, ids_t, N, want=None):
+        got = next_use_cuda(ids_t, N)
+        plain = ref.next_use_ref(ids_t, N)
+        torch.cuda.synchronize()
+        if want is None:
+            want = next_use_indices(ids_t.cpu().numpy(), N)
+        check(torch.equal(got, plain), f"next_use differs from plain: {label}")
+        check(np.array_equal(got.cpu().numpy(), want),
+              f"next_use differs from next_use_indices: {label}")
+        errs["next_use"] = max(errs["next_use"],
+                               float((got - plain).abs().max()))
+        p = plan(ids_t.numel(), N, one_wave)
+        plans[label] = dict(T=ids_t.numel(), N=N, path=p["path"],
+                            tile=p["tile_items"],
+                            passes=digit_passes(int(ids_t.max())))
+        cases.append(f"next_use {label}")
+        return got
+
+    for label, ids, N in inputs:
+        one(label, torch.tensor(np.ascontiguousarray(ids, np.int32),
+                                device=dev), N)
+    big = uniform_ids(seed, NU_BYTES_T, NU_BYTES_N, dev)
+    first = one("T=2^26 N=2^22 uniform (timing shape)", big, NU_BYTES_N)
+    small = torch.tensor(rng.integers(0, 7, 1000).astype(np.int32), device=dev)
+    one("small call between two big ones", small, 7)
+    again = next_use_cuda(big, NU_BYTES_N)
+    torch.cuda.synchronize()
+    check(torch.equal(again, first), "next_use: a big call after a small one "
+          "differs from the first big call")
+    cases.append("next_use big, small, big on one stream: equal")
+    del big, first, again
+    torch.cuda.empty_cache()
+    return plans
+
+
 def phase_kernel_checks(seed: int, dev) -> dict:
     rng = np.random.default_rng(seed)
     errs = {name: 0.0 for name in ops.KERNELS}
@@ -348,36 +461,13 @@ def phase_kernel_checks(seed: int, dev) -> dict:
     argmin_case("cached scores at or above 3.4e38 (dense rescan)", s,
                 torch.arange(4099, 0, -1, dtype=torch.int32, device=dev), m)
 
-    limit = shared_table_entries()
-    for label, T, N, ids in [
-        ("T=200000 N=20000", 200_000, 20_000, None),
-        ("T=1 N=1", 1, 1, None),
-        ("single id", 70_001, 1, None),
-        ("all ids distinct", 50_000, 50_000, rng.permutation(50_000)),
-        ("N above the shared-memory table", 200_000, 4 * limit, None),
-        ("ragged last chunk", 1_000_003, 997, None),
-    ]:
-        if ids is None:
-            ids = rng.integers(0, N, T)
-        ids = ids.astype(np.int32)
-        ids_t = torch.tensor(ids, device=dev)
-        got = next_use_cuda(ids_t, N)
-        plain = ref.next_use_ref(ids_t, N)
-        torch.cuda.synchronize()
-        want = next_use_indices(ids, N)
-        check(torch.equal(got, plain), f"next_use differs from plain: {label}")
-        check(np.array_equal(got.cpu().numpy(), want),
-              f"next_use differs from next_use_indices: {label}")
-        errs["next_use"] = max(errs["next_use"],
-                               float((got - plain).abs().max()))
-        cases.append(f"next_use {label} ({'shared' if N <= limit else 'global'}"
-                     " table)")
+    nu_plans = next_use_checks(seed, rng, dev, errs, cases)
     scan_bytes = scan_checks(rng, dev, errs, cases)
     scan_deep_checks(rng, dev, errs, cases)
     emit("kernel_checks", cases=cases, max_abs_err=errs,
          scan_byte_sizes=scan_bytes,
          scan_error_chain={T: error_chain(T) for T in SCAN_T},
-         shared_table_entries=limit)
+         next_use_plans=nu_plans)
     return errs
 
 
@@ -648,8 +738,13 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
     needs: every mask byte, the score of each cached entry, the touch row
     and the outputs. Inputs are warm in L2, as in the replay, where the op
     just before wrote the scores. next_use reads each id once and writes
-    each result once. The scans run on cost-FOO's CDN schedule (T = 200,000
-    float32 deltas and caps, 2.4 MB, warm in L2) and again at T = 2^26
+    each result once (8*T bytes); it runs on replay_full's trace, on 2^22
+    uniform ids over 2^20 objects and on 2^26 over 2^22 (256 MiB an array,
+    cold) -- one shape for each of its paths -- beside
+    `sort_only_device_ms`, a stable torch.sort of the same ids, and its
+    other paths forced. The scans
+    run on cost-FOO's CDN schedule (T = 200,000 float32 deltas and caps,
+    2.4 MB, warm in L2) and again at T = 2^26
     (256 MiB an array, cold), where bytes and not launches should set the
     time; their bound is 12*T bytes (deltas, zcap, occ) for
     occupancy_feasible and 8*T for interval_occupancy."""
@@ -666,8 +761,7 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
     m = torch.tensor(cached, device=dev)
     argmin_bytes = m.numel() + int(cached.sum()) * 4 + N * 4 + C * (4 + 4)
     ids_t = torch.tensor(tr.ids.astype(np.int32), device=dev)
-    T = ids_t.numel()
-    next_bytes = T * 4 + T * 4
+    ids26 = uniform_ids(seed, NU_BYTES_T, NU_BYTES_N, dev)
     dense_bytes = {"evict_argmin": C * N * (4 + 4 + 1)}
     d200 = torch.tensor(schedule["deltas"], device=dev)
     z200 = torch.tensor(schedule["zcap"], device=dev)
@@ -682,10 +776,25 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
          lambda: ref.evict_argmin_ref(s, t, m), None, argmin_bytes, 50,
          dict(C=C, N=N, dtype="float32", touch="shared (N,)",
               cached_per_row=[int(b) - 1 for b in FULL_BUDGETS])),
-        ("next_use", lambda: next_use_cuda(ids_t, N),
-         lambda: ref.next_use_ref(ids_t, N), None, next_bytes, 5,
-         dict(T=T, N=N)),
     ]
+    one_wave = _build.library().next_use_one_wave_items()
+    ids22 = uniform_ids(seed, 2**22, 2**20, dev)
+    for x, n, label in [(ids_t, N, "replay_full's trace (Zipf)"),
+                        (ids22, 2**20, "uniform, the direct path's limit"),
+                        (ids26, NU_BYTES_N, "uniform, cold")]:
+        cases.append(("next_use", lambda x=x, n=n: next_use_cuda(x, n),
+                      lambda x=x, n=n: ref.next_use_ref(x, n), None,
+                      8 * x.numel(), 5,
+                      dict(T=x.numel(), N=n, data=label,
+                           path=plan(x.numel(), n, one_wave)["path"]),
+                      dict(sort=lambda x=x: torch.sort(x, stable=True),
+                           paths={other: (lambda x=x, n=n, o=other:
+                                          next_use_on_path(o, x, n))
+                                  for other in NU_PATHS
+                                  if other != plan(x.numel(), n,
+                                                   one_wave)["path"]
+                                  and (other != "one_wave"
+                                       or x.numel() <= one_wave)})))
     for d, z, label in [(d200, z200, "cost-FOO CDN schedule, warm in L2"),
                         (d26, z26, "2^26 integer deltas, cold")]:
         n = d.numel()
@@ -700,12 +809,27 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
              dict(T=n, dtype="float32", data=label)),
         ]
     rows = []
-    for name, kernel, plain, library, nbytes, reps, shape in cases:
+    for name, kernel, plain, library, nbytes, reps, shape, *more in cases:
+        yardsticks = more[0] if more else {}
         ms = time_ms(kernel, reps=reps)
         plain_ms = time_ms(plain, reps=reps)
         library_ms = time_ms(library, reps=reps) if library else None
         on_card = device_time(kernel)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        extra = {}
+        if yardsticks:
+            extra = dict(
+                sort_only_device_ms=device_time(yardsticks["sort"])["ms"],
+                sort_only_note="torch.sort(ids, stable=True) alone: one part "
+                               "of the work (no successor, no write of "
+                               "next(t)), timed as a yardstick; the port "
+                               "never calls it",
+                other_paths_device_ms={
+                    other: device_time(fn)["ms"]
+                    for other, fn in yardsticks["paths"].items()},
+                other_paths_note="the same call forced down the kernel's "
+                                 "other paths, which plan() picks at other "
+                                 "T")
         rows.append(dict(
             name=name, **KERNEL_INFO[name], launches=launches[name],
             max_abs_err=errs[name], tolerance=TOLERANCE[name], ms=ms,
@@ -723,8 +847,9 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
                               "read" if name == "evict_argmin" else
                               "same as bound_ms"),
             library_ms=library_ms,
-            library_call="torch.cumsum" if library else None, shape=shape))
-    del d26, z26
+            library_call="torch.cumsum" if library else None, shape=shape,
+            **extra))
+    del d26, z26, ids22, ids26
     print(json.dumps({"kernels": rows}), flush=True)
 
 

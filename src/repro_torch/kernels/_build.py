@@ -37,10 +37,23 @@ _SIGNATURES = {
     "evict_argmin_launch": ([_vp, ctypes.c_int, _vp, _vp, _vp, _vp,
                              ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                              _vp], ctypes.c_int),
-    # ids, out, global_table, T, n, table_in_shared, stream
-    "next_use_launch": ([_vp, _vp, _vp, ctypes.c_int, ctypes.c_int,
-                         ctypes.c_int, _vp], ctypes.c_int),
-    "next_use_max_shared_entries": ([], ctypes.c_int),
+    # ids, T, n, positions, counters, spare, status, status_words, stream
+    "next_use_stats_launch": ([_vp, ctypes.c_longlong, ctypes.c_int,
+                               ctypes.c_int, _vp, _vp, _vp, ctypes.c_longlong,
+                               _vp], ctypes.c_int),
+    # ids, out, buffers, counters, spare, status, T, n, positions, seen,
+    # stream
+    "next_use_one_wave_launch": ([_vp, _vp, _vp, _vp, _vp, _vp,
+                                  ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_int, _vp, _vp], ctypes.c_int),
+    "next_use_one_wave_items": ([], ctypes.c_longlong),
+    "next_use_range_word": ([], ctypes.c_int),
+    # ids, out, buffers, counters, status, T, passes, tile_items,
+    # partition_shift, stream
+    "next_use_sort_launch": ([_vp, _vp, _vp, _vp, _vp, ctypes.c_longlong,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int, _vp],
+                             ctypes.c_int),
+    "next_use_counter_words": ([], ctypes.c_int),
     # deltas, deltas_int32, occ, scratch, T, stream
     "interval_occupancy_launch": ([_vp, ctypes.c_int, _vp, _vp,
                                    ctypes.c_longlong, _vp], ctypes.c_int),

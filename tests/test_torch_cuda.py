@@ -17,7 +17,8 @@ from repro_torch.kernels.evict_argmin import evict_argmin_cuda
 from repro_torch.kernels.interval_occupancy import (error_chain,
                                                     interval_occupancy_cuda,
                                                     occupancy_feasible_cuda)
-from repro_torch.kernels.next_use import next_use_cuda, shared_table_entries
+from repro_torch.kernels import _build
+from repro_torch.kernels.next_use import next_use_cuda, plan
 
 pytestmark = pytest.mark.cuda
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -141,23 +142,96 @@ def test_evict_argmin_kernel_scores_at_or_above_big(cuda):
     assert gi.tolist() == [N - 1, N - 1, 9]
 
 
-@pytest.mark.parametrize("T,N", [(200_000, 20_000), (1, 1), (1000, 1),
-                                 (4097, 4097), (5000, 100_000)])
-def test_next_use_kernel_matches_plain(cuda, T, N):
+def _next_use_ids(rng, T, N, kind):
+    """(T,) ids below N: uniform with the largest id N - 1 present, sorted
+    either way, or all below 1000 (N far above the largest id)."""
+    if kind == "below1000":
+        return rng.integers(0, 1000, T).astype(np.int32)
+    ids = rng.integers(0, N, T)
+    ids[rng.integers(0, T)] = N - 1
+    if kind == "ascending":
+        ids = np.sort(ids)
+    elif kind == "descending":
+        ids = np.sort(ids)[::-1]
+    return np.ascontiguousarray(ids, np.int32)
+
+
+@pytest.mark.parametrize("T,N,kind", [
+    pytest.param(T, N, "uniform", id=f"{T}-{N}")
+    for T, N in [(200_000, 20_000), (1, 1), (1000, 1), (4097, 4097),
+                 (5000, 100_000),
+                 # the largest id at each digit-count boundary
+                 (100_000, 256), (100_000, 257), (100_000, 65_536),
+                 (100_000, 65_537), (100_000, 2**24 + 1),
+                 # the small tile's edges (2048 requests)
+                 (2047, 300), (2048, 300), (2049, 300)]
+] + [pytest.param(100_000, 5000, "ascending", id="ascending"),
+     pytest.param(100_000, 5000, "descending", id="descending"),
+     pytest.param(200_000, 2**30, "below1000", id="N-far-above-ids")])
+def test_next_use_kernel_matches_plain(cuda, T, N, kind):
     rng = np.random.default_rng(T + N)
-    ids = rng.integers(0, N, T).astype(np.int32)
+    ids = _next_use_ids(rng, T, N, kind)
     ids_t = torch.tensor(ids, device=cuda)
     got = next_use_cuda(ids_t, N)
     assert torch.equal(got, ref.next_use_ref(ids_t, N))
     np.testing.assert_array_equal(got.cpu().numpy(), next_use_indices(ids, N))
 
 
-def test_next_use_kernel_global_table(cuda):
-    N = shared_table_entries() + 1           # one past the shared table
-    rng = np.random.default_rng(1)
-    ids = rng.integers(0, N, 30_001).astype(np.int32)
+def test_next_use_kernel_three_passes(cuda):
+    N = 2**17 + 5                     # ids past 2^16: three digit passes
+    rng = np.random.default_rng(3)
+    ids = _next_use_ids(rng, 300_001, N, "uniform")
     got = next_use_cuda(torch.tensor(ids, device=cuda), N)
     np.testing.assert_array_equal(got.cpu().numpy(), next_use_indices(ids, N))
+
+
+def _one_wave_items():
+    return int(_build.library().next_use_one_wave_items())
+
+
+@pytest.mark.parametrize("where", ["one-wave limit", "direct", "direct limit",
+                                   "grouped", "grouped, ragged large tile"])
+def test_next_use_kernel_paths(cuda, where):
+    limit = _one_wave_items()
+    T, path = {"one-wave limit": (limit, "one_wave"),
+               "direct": (limit + 1, "direct"),
+               "direct limit": (2**22, "direct"),
+               "grouped": (2**22 + 1, "grouped"),
+               "grouped, ragged large tile": (2**24 + 3, "grouped")}[where]
+    N = 2**20
+    assert plan(T, N, limit)["path"] == path
+    rng = np.random.default_rng(T)
+    ids = _next_use_ids(rng, T, N, "uniform")
+    got = next_use_cuda(torch.tensor(ids, device=cuda), N)
+    np.testing.assert_array_equal(got.cpu().numpy(), next_use_indices(ids, N))
+
+
+def test_next_use_kernel_calls_leave_no_state(cuda):
+    """A big call, a small one, a refused one and a big one again on one
+    stream, and calls on two streams interleaved, all equal the plain
+    version: the counters each call leaves behind are the next call's."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    big = torch.randint(0, 2**20, (2**22 + 7,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    small = torch.randint(0, 7, (1000,), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    first = next_use_cuda(big, 2**20)
+    assert torch.equal(next_use_cuda(small, 7), ref.next_use_ref(small, 7))
+    with pytest.raises(ValueError):
+        next_use_cuda(torch.tensor([0, 7], dtype=torch.int32, device=cuda), 7)
+    assert torch.equal(next_use_cuda(big, 2**20), first)
+    assert torch.equal(first, ref.next_use_ref(big, 2**20))
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s1):
+        a = next_use_cuda(big, 2**20)
+    with torch.cuda.stream(s2):
+        b = next_use_cuda(small, 7)
+    with torch.cuda.stream(s1):
+        c = next_use_cuda(small, 7)
+    torch.cuda.synchronize()
+    assert torch.equal(a, first) and torch.equal(b, c)
+    assert torch.equal(b, ref.next_use_ref(small, 7))
 
 
 def test_kernel_wrappers_reject_bad_inputs(cuda):

@@ -11,7 +11,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.evict_argmin import evict_argmin_cuda
-from repro_torch.kernels.next_use import next_use_cuda
+from repro_torch.kernels.next_use import digit_passes, next_use_cuda, plan
 
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -124,6 +124,44 @@ def test_next_use_plain_matches_pallas(T, N, block_t):
     want = np.asarray(jops.next_use(jnp.asarray(ids), N, block_t=block_t))
     np.testing.assert_array_equal(ref.next_use_ref(torch.tensor(ids), N),
                                   want)
+
+
+# the CUDA next_use's host planning: passes from the largest id, at least
+# one (the last pass forms next(t))
+@pytest.mark.parametrize("max_id,passes", [
+    (0, 1), (1, 1), (255, 1), (256, 2), (65_535, 2), (65_536, 3),
+    (2**24 - 1, 3), (2**24, 4), (2**31 - 2, 4),
+])
+def test_next_use_digit_passes(max_id, passes):
+    assert digit_passes(max_id) == passes
+
+
+@pytest.mark.parametrize("T,N,one_wave,path,positions,tile", [
+    (200_000, 20_000, 540_672, "one_wave", 2, 2048),
+    (540_672, 20_000, 540_672, "one_wave", 2, 2048),
+    (540_673, 20_000, 540_672, "direct", 2, 2048),
+    (200_000, 20_000, 0, "direct", 2, 2048),
+    (2**20 + 1, 2**20, 0, "direct", 3, 4096),
+    (2**22, 2**20, 0, "direct", 3, 4096),
+    (2**22 + 1, 2**20, 0, "grouped", 3, 4096),
+    (2**26, 2**22, 540_672, "grouped", 3, 4096),
+    (1, 1, 540_672, "one_wave", 1, 2048),
+    (5_000, 2**30, 540_672, "one_wave", 4, 2048),
+])
+def test_next_use_plan(T, N, one_wave, path, positions, tile):
+    p = plan(T, N, one_wave)
+    assert (p["path"], p["positions"], p["tile_items"]) == (path, positions,
+                                                            tile)
+    assert p["tiles"] == -(-T // tile)
+    assert p["status_words"] == 2 * p["tiles"] * 256
+    # ping-pong pair buffers unless one pass writes next(t) directly
+    assert p["buffers"] == (4 * T if positions > 1 or path == "grouped"
+                            else 0)
+    if path == "grouped":   # t >> shift is t's top 8 bits
+        assert (T - 1) >> p["partition_shift"] < 256
+        assert (T - 1) >> p["partition_shift"] >= 128 or T <= 256
+    else:
+        assert p["partition_shift"] == -1
 
 
 def test_dispatch_on_cpu_uses_plain_version():
