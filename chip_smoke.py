@@ -12,7 +12,10 @@ exact optimum's schedules through the occupancy scan, brackets the
 dollar-optimum of a 200k-request variable-size CDN trace with cost-FOO
 (its rounded schedule checked on the card, the bracket equal to a CPU
 run's), then runs the full-size sweep (200k requests, 20k objects, 96
-cells) through the kernels. It prints one JSON line per phase, the
+cells) through the kernels. It then serves at phi4-mini-3.8b's full width
+through the egress-billed engine, its bill held bit for bit against a
+host-only replay, checks decode against prefill and the card against the
+CPU, and profiles the decode step. It prints one JSON line per phase, the
 `nvidia-smi` name and power limit, one line that lists every kernel with
 its time beside its bound, and last `{"ok": true, "device": {...}}`. Any
 failed check raises and exits non-zero; without a CUDA device it exits
@@ -21,6 +24,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import json
 import os
@@ -40,6 +44,15 @@ from repro_torch.core import (PRICE_VECTORS, Trace, cost_foo,  # noqa: E402
                               interval_deltas, miss_costs, regret, simulate,
                               sweep_torch, twemcache_like, wiki_cdn_like)
 from repro_torch.core.trace import next_use_indices  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.egress import EgressCache, ObjectStore  # noqa: E402
+from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
+from repro_torch.obs import EventLog, Tracer  # noqa: E402
+from repro_torch.online import (DollarGovernor, MetricsRegistry,  # noqa: E402
+                                WindowedAuditor)
+from repro_torch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.serve.engine import _grow, _prefix_key  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.evict_argmin import evict_argmin_cuda  # noqa: E402
 from repro_torch.kernels.interval_occupancy import (  # noqa: E402
@@ -697,26 +710,80 @@ def phase_replay_profile(tr: Trace, full_execute_s: float,
          top_host_us_per_step=top(on_host, lambda e: e.self_cpu_time_total, 10))
 
 
-def device_time(fn, reps: int = 20) -> dict:
+L2_FLUSH_BYTES = 256 << 20   # five times the H100's 50 MB L2
+
+
+class L2Flush:
+    """Evict the L2 between profiled calls: one pass over a 256 MiB buffer
+    (`bitwise_not_` on uint8, a kernel nothing else here launches), whose
+    kernel `device_time` recognises by name and leaves out of its sum."""
+
+    def __init__(self, dev):
+        self.buf = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+
+    def __call__(self) -> None:
+        self.buf.bitwise_not_()
+
+    @staticmethod
+    def owns(kernel_name: str) -> bool:
+        return "bitwise_not" in kernel_name
+
+
+def device_time(fn, reps: int = 20, flush: L2Flush | None = None,
+                tries: int = 3) -> dict:
     """Device time per call of the kernels `fn` launches, in all and by
     kernel name, from a torch.profiler trace of `reps` calls ("not
-    measured" if the trace holds no device time)."""
+    measured" if the trace holds no device time). With `flush`, each call
+    finds the L2 cold: the flush runs before it, and its kernel (one
+    launch a call) is left out of the sum.
+
+    The profiler loses the first events of a trace (a fast kernel read 18
+    of 20 calls), which reads as a kernel faster than the card; so each
+    trace records a second round of `reps` calls after a warm-up round
+    (the profiler's own schedule). Every function timed here launches the
+    same kernels on every call, so each name's count of events must be a
+    multiple of `reps`: a trace that still lost events is taken again, up
+    to `tries` times."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+    for _ in range(tries):
+        traces = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1),
+                     on_trace_ready=lambda p: traces.append(
+                         p.key_averages())) as prof:
+            for _ in range(2):          # warm-up round, recorded round
+                for _ in range(reps):
+                    if flush is not None:
+                        flush()
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        by_name, counts, flushes = {}, {}, 0
+        for e in (traces[-1] if traces else []):
+            if (e.device_type != DeviceType.CUDA
+                    or e.self_device_time_total <= 0
+                    or e.key.startswith("ProfilerStep")):   # step marker
+                continue
+            if flush is not None and L2Flush.owns(e.key):
+                flushes += e.count
+                continue
             name = e.key.replace("(anonymous namespace)::", "")
             name = name.split("(")[0].removeprefix("void ").strip()
             by_name[name] = by_name.get(name, 0.0) + \
                 e.self_device_time_total / 1e3 / reps
+            counts[name] = counts.get(name, 0) + e.count
+        complete = (bool(traces)
+                    and all(n % reps == 0 for n in counts.values())
+                    and (flush is None or flushes == reps))
+        if complete:
+            break
+    check(complete, f"the profiler kept {counts} kernel events and {flushes} "
+          f"flushes of {reps} calls in {tries} tries")
     if not by_name:
         return dict(ms="not measured", kernels={})
     return dict(ms=sum(by_name.values()), kernels=by_name)
@@ -747,7 +814,10 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
     2.4 MB, warm in L2) and again at T = 2^26
     (256 MiB an array, cold), where bytes and not launches should set the
     time; their bound is 12*T bytes (deltas, zcap, occ) for
-    occupancy_feasible and 8*T for interval_occupancy."""
+    occupancy_feasible and 8*T for interval_occupancy. In the rows labelled
+    cold every profiled call (kernel, plain, library and yardsticks) finds
+    the L2 flushed (`L2Flush`, left out of the device time), and no cold
+    row may read more than 1.05 of its byte bound."""
     rng = np.random.default_rng(seed + 1)
     C, N = len(POLICIES) * len(PRICES) * len(FULL_BUDGETS), tr.num_objects
     s = torch.tensor(rng.standard_normal((C, N)).astype(np.float32),
@@ -809,23 +879,32 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
              dict(T=n, dtype="float32", data=label)),
         ]
     rows = []
+    flush = L2Flush(dev)
     for name, kernel, plain, library, nbytes, reps, shape, *more in cases:
         yardsticks = more[0] if more else {}
+        cold = shape.get("data", "").endswith("cold")
+        fl = flush if cold else None
         ms = time_ms(kernel, reps=reps)
         plain_ms = time_ms(plain, reps=reps)
         library_ms = time_ms(library, reps=reps) if library else None
-        on_card = device_time(kernel)
+        on_card = device_time(kernel, flush=fl)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        share = (bound_ms / on_card["ms"] if on_card["kernels"]
+                 else "not measured")
+        check(not cold or share == "not measured" or share <= 1.05,
+              f"{name} ({shape.get('data')}) reads {share} of its byte bound: "
+              "faster than device memory, so the row was not cold")
         extra = {}
         if yardsticks:
             extra = dict(
-                sort_only_device_ms=device_time(yardsticks["sort"])["ms"],
+                sort_only_device_ms=device_time(yardsticks["sort"],
+                                                flush=fl)["ms"],
                 sort_only_note="torch.sort(ids, stable=True) alone: one part "
                                "of the work (no successor, no write of "
                                "next(t)), timed as a yardstick; the port "
                                "never calls it",
                 other_paths_device_ms={
-                    other: device_time(fn)["ms"]
+                    other: device_time(fn, flush=fl)["ms"]
                     for other, fn in yardsticks["paths"].items()},
                 other_paths_note="the same call forced down the kernel's "
                                  "other paths, which plan() picks at other "
@@ -835,11 +914,12 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
             max_abs_err=errs[name], tolerance=TOLERANCE[name], ms=ms,
             plain_ms=plain_ms, device_ms=on_card["ms"],
             device_kernels=on_card["kernels"],
-            plain_device_ms=device_time(plain)["ms"],
-            library_device_ms=device_time(library)["ms"] if library else None,
-            bound_ms=bound_ms, bound_by="bytes",
-            bound_share=(bound_ms / on_card["ms"] if on_card["kernels"]
-                         else "not measured"),
+            plain_device_ms=device_time(plain, flush=fl)["ms"],
+            library_device_ms=(device_time(library, flush=fl)["ms"]
+                               if library else None),
+            l2=("cold: the L2 flushed before each profiled call, the flush "
+                "left out" if cold else "warm"),
+            bound_ms=bound_ms, bound_by="bytes", bound_share=share,
             bound_note=f"{nbytes} bytes this data needs over 3.35 TB/s",
             dense_bound_ms=dense_bytes.get(name, nbytes) / HBM_BYTES_PER_S
             * 1e3,
@@ -851,6 +931,368 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
             **extra))
     del d26, z26, ids22, ids26
     print(json.dumps({"kernels": rows}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# serving: the egress-billed engine at phi4-mini-3.8b's full width
+
+SERVE_ARCH = "phi4-mini-3.8b"
+SERVE_POOL, SERVE_PROMPT, SERVE_LONG = 8, 512, 2304
+SERVE_ROUNDS, SERVE_PER_ROUND, SERVE_NEW, SERVE_LONG_NEW = 8, 4, 8, 4
+SERVE_ZIPF, SERVE_WINDOW = 1.1, 4
+SERVE_PRICE = "gcs_internet"
+BF16_PEAK_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core rate (data sheet)
+# serve_numerics tolerances, on max|gap| / max|reference logit|, set from
+# bf16's 8-bit mantissa (one rounding: 2^-9 relative) before any run:
+# (a) decode against prefill, both bf16 on the card through 32 layers: the
+#     two paths round at the same places but sum their products in other
+#     orders (M = 1 against M = 513), so each op may differ by an ulp;
+#     2^-4 leaves several times the random-walk growth of 2^-9 steps.
+# (b) the card's bf16 against the CPU's float32 on the same weights, two
+#     layers: every bf16 rounding of the card is an error; 2^-6 = 8 ulps.
+DECODE_VS_PREFILL_REL = 2.0 ** -4
+CARD_VS_CPU_REL = 2.0 ** -6
+
+
+def blob_bytes(cfg, S: int) -> int:
+    """A prefix blob: one row's K cache of every layer, L*S*G*hd bf16."""
+    return cfg.num_layers * S * cfg.num_kv_heads * cfg.hd * 2
+
+
+def serve_setup(seed: int, dev) -> tuple:
+    """phi4-mini-3.8b at full width, its weights drawn on the card."""
+    cfg = get_config(SERVE_ARCH)
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed, device=dev)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    return model, params, dict(
+        init_s=time.perf_counter() - t0, params=sum(t.numel() for t in leaves),
+        param_bytes=sum(t.numel() * t.element_size() for t in leaves))
+
+
+def matmul_params(cfg) -> int:
+    """Weights of the per-token matrix products (embedding lookup and
+    unembedding left out)."""
+    d, H, G, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    return cfg.num_layers * (2 * d * H * hd + 2 * d * G * hd
+                             + 3 * d * cfg.d_ff)
+
+
+def host_replay(keys: list, sizes: dict, capacity: float) -> tuple:
+    """The engine's key sequence through a fresh cache wired as the
+    engine wires it (GDSF, the governor and its auditor), on a store of
+    blobs of the same lengths, with no model."""
+    store = ObjectStore(SERVE_PRICE)
+    for key, n in sizes.items():
+        store.register_lazy(key, n, lambda n=n: bytes(n))
+    metrics = MetricsRegistry()
+    cache = EgressCache(store, capacity, "gdsf", consumer="serve_prefix_cache",
+                        metrics=metrics)
+    DollarGovernor(cache, window=SERVE_WINDOW, hysteresis=0.05,
+                   auditor=WindowedAuditor(capacity, window=4 * SERVE_WINDOW,
+                                           metrics=metrics),
+                   metrics=metrics)
+    for key in keys:
+        cache.get(key)
+    return store, cache
+
+
+def time_prefill_decode(model, params, tokens: torch.Tensor,
+                        steps: int) -> dict:
+    """CUDA-event times of one prefill of `tokens` (median of 3) and of
+    `steps` greedy decode steps after it (ms a step), with the host's wall
+    time of the same decode loop (enqueue to the final synchronize)."""
+    B, S = tokens.shape
+    prefill_ms = []
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, caches = model.prefill(params, {"tokens": tokens})
+        end.record()
+        torch.cuda.synchronize()
+        prefill_ms.append(start.elapsed_time(end))
+    caches = _grow(model, caches, S + steps + 1)
+    tok = torch.argmax(logits, -1)
+    logits, caches = model.decode_step(params, tok, caches, S)   # warm-up
+    tok = torch.argmax(logits, -1)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for step in range(steps):
+        logits, caches = model.decode_step(params, tok, caches, S + 1 + step)
+        tok = torch.argmax(logits, -1)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(prefill_ms=statistics.median(prefill_ms[1:]),
+                decode_ms_per_step=start.elapsed_time(end) / steps,
+                decode_wall_ms_per_step=wall / steps * 1e3)
+
+
+def phase_serve(seed: int, model, params, setup: dict, dev) -> dict:
+    """ServeEngine.serve at full width, governed, traced and logged: eight
+    rounds of four prompts drawn by Zipf(1.1) from a pool of eight 512-token
+    prompts (32 MiB blobs; the cache holds four), with one 2304-token
+    prompt (a 144 MiB blob, larger than the cache, so its re-fetch is
+    rejected after billing; 2304^2 query x key takes chunked_attention) in
+    rounds 4 and 8. The bill is held against a host-only replay."""
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    V = cfg.vocab_size
+    rng = np.random.default_rng(seed)
+    pool = [rng.integers(0, V, SERVE_PROMPT).astype(np.int32)
+            for _ in range(SERVE_POOL)]
+    long_prompt = rng.integers(0, V, SERVE_LONG).astype(np.int32)
+    weights = 1.0 / np.arange(1, SERVE_POOL + 1) ** SERVE_ZIPF
+    capacity = 4 * blob_bytes(cfg, SERVE_PROMPT)
+    check(capacity == 1 << 27 and blob_bytes(cfg, SERVE_LONG) > capacity,
+          f"cache {capacity} bytes: the pool's blobs are not 32 MiB")
+    tracer, events = Tracer(), EventLog()
+    engine = ServeEngine(model, params, prefix_cache_bytes=capacity,
+                         policy="gdsf", govern=True,
+                         governor_window=SERVE_WINDOW, tracer=tracer,
+                         events=events)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rid, round_s = 0, []
+    for r in range(SERVE_ROUNDS):
+        picks = rng.choice(SERVE_POOL, SERVE_PER_ROUND,
+                           p=weights / weights.sum())
+        reqs = [Request(rid + j, pool[i], SERVE_NEW)
+                for j, i in enumerate(picks)]
+        if r % 4 == 3:
+            reqs.append(Request(rid + len(reqs), long_prompt, SERVE_LONG_NEW))
+        rid += len(reqs)
+        t0 = time.perf_counter()
+        engine.serve(reqs)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        for q in reqs:
+            check(q.output.shape == (q.max_new_tokens,)
+                  and bool(((q.output >= 0) & (q.output < V)).all()),
+                  f"request {q.rid}: bad output {q.output}")
+    launches = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    store, cache, meter = engine.store, engine.cache, engine.cache.meter
+    length = {_prefix_key(p): len(p) for p in pool + [long_prompt]}
+    sizes = {k: store.size_of(k) for k in store.keys()}
+    for key, n in sizes.items():
+        check(n == blob_bytes(cfg, length[key]),
+              f"blob {key} is {n} bytes, not L*S*G*hd*2")
+    check(store.meter.gets == cache.misses > 0,
+          f"{store.meter.gets} GETs for {cache.misses} misses")
+    span_dollars = tracer.dollars(name="store.get", consumer=cache.consumer)
+    check(abs(span_dollars - meter.dollars) <= 1e-12 * meter.dollars,
+          f"span dollars {span_dollars} != meter {meter.dollars}")
+    check(events.dollars_billed("miss") == meter.dollars,
+          "miss events do not bill the meter's dollars bit for bit")
+    kinds = {k: len(events.events(k)) for k in
+             ("hit", "miss", "admit", "reject", "evict", "policy_swap")}
+    check(kinds["evict"] >= 1 and kinds["reject"] >= 1,
+          f"expected an evict and a reject event: {kinds}")
+    audit = engine.audit()
+    r_store, r_cache = host_replay(list(cache._trace_keys), sizes, capacity)
+    check(r_store.meter.dollars == store.meter.dollars
+          and r_store.meter.gets == store.meter.gets
+          and (r_cache.hits, r_cache.misses) == (cache.hits, cache.misses),
+          "the host-only replay bills otherwise than the engine")
+    check(dataclasses.asdict(r_cache.audit()) == dataclasses.asdict(audit),
+          "the host-only replay audits otherwise than the engine")
+
+    again = [engine.serve([Request(rid + i, pool[0], SERVE_NEW)])[0].output
+             for i in range(2)]
+    check(np.array_equal(*again), f"one prompt, two outputs: {again}")
+
+    tokens = torch.as_tensor(np.stack(pool[:SERVE_PER_ROUND]).astype(np.int64),
+                             device=dev)
+    timing = time_prefill_decode(model, params, tokens, steps=16)
+    n_tok = tokens.numel()
+    # the matrix products, causal attention (QK^T and PV over the keys at
+    # or before each query: half the S^2 square) and the last position's
+    # unembedding
+    flops = (2 * matmul_params(cfg) * n_tok
+             + 2 * cfg.num_layers * cfg.num_heads * cfg.hd
+             * SERVE_PER_ROUND * SERVE_PROMPT * (SERVE_PROMPT + 1)
+             + 2 * cfg.d_model * V * SERVE_PER_ROUND)
+    decode_bytes = (2 * matmul_params(cfg) + 2 * cfg.d_model * V
+                    + 2 * cfg.num_layers * 2 * SERVE_PER_ROUND
+                    * (SERVE_PROMPT + 2) * cfg.num_kv_heads * cfg.hd)
+    emit("serve", arch=SERVE_ARCH, layers=cfg.num_layers,
+         d_model=cfg.d_model, vocab=V, params=setup["params"],
+         param_gib=setup["param_bytes"] / 2**30, init_s=setup["init_s"],
+         price=SERVE_PRICE, cache_bytes=capacity,
+         blob_bytes={"pool": blob_bytes(cfg, SERVE_PROMPT),
+                     "long": blob_bytes(cfg, SERVE_LONG)},
+         rounds=SERVE_ROUNDS, requests=rid, round_s=round_s,
+         prefill_tokens_per_s=n_tok / timing["prefill_ms"] * 1e3,
+         prefill_ms=timing["prefill_ms"], prefill_tokens=n_tok,
+         prefill_flops=flops,
+         prefill_bound_ms=flops / BF16_PEAK_FLOPS * 1e3,
+         prefill_bound_by="operations (bf16 at 989 TFLOP/s)",
+         decode_ms_per_step=timing["decode_ms_per_step"],
+         decode_wall_ms_per_step=timing["decode_wall_ms_per_step"],
+         decode_batch=SERVE_PER_ROUND,
+         decode_bound_ms=decode_bytes / HBM_BYTES_PER_S * 1e3,
+         decode_bound_by="bytes (every weight and the KV cache read once, "
+                         "3.35 TB/s)",
+         peak_device_gib=peak_gib, launches=launches,
+         gets=store.meter.gets, hits=cache.hits, misses=cache.misses,
+         dollars=meter.dollars, events=kinds,
+         policy=cache.policy, swaps=len(engine.governor.swaps),
+         audit=audit.summary(), dollar_regret=audit.dollar_regret,
+         opt_dollars=[audit.opt_dollars_lower, audit.opt_dollars_upper],
+         host_replay_equal=True, span_dollars=span_dollars,
+         seconds=time.perf_counter() - t_phase)
+    return dict(pool=pool, timing=timing)
+
+
+def phase_serve_numerics(seed: int, model, params, pool: list, dev) -> None:
+    """(a) At full width, decode_step at position 512 for token x against
+    the last-position logits of prefill(prompt + [x]). (b) A two-layer cut
+    of the same weights (full width, batch 2, 128-token prompts): the
+    card's bf16 prefill and 4 decode steps against the CPU's float32."""
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    rng = np.random.default_rng(seed + 2)
+    prompt = torch.as_tensor(pool[1][None].astype(np.int64), device=dev)
+    x = int(rng.integers(0, cfg.vocab_size))
+    logits, caches = model.prefill(params, {"tokens": prompt})
+    decode, _ = model.decode_step(params, torch.tensor([x], device=dev),
+                                  _grow(model, caches, SERVE_PROMPT + 1),
+                                  SERVE_PROMPT)
+    longer = torch.cat([prompt, torch.tensor([[x]], device=dev)], 1)
+    full, _ = model.prefill(params, {"tokens": longer})
+    gap_a = float((decode - full).abs().max())
+    rel_a = gap_a / float(full.abs().max())
+    check(rel_a <= DECODE_VS_PREFILL_REL,
+          f"decode against prefill: max gap {gap_a}, {rel_a} of the largest "
+          f"logit > {DECODE_VS_PREFILL_REL}")
+    top2 = torch.topk(full, 2, -1).values[0]
+    margin_a = float(top2[0] - top2[1])
+    check(margin_a <= DECODE_VS_PREFILL_REL * float(full.abs().max())
+          or int(decode.argmax()) == int(full.argmax()),
+          "decode and prefill pick other tokens where the margin exceeds "
+          "the tolerance")
+
+    cut = dataclasses.replace(cfg, num_layers=2)
+    card_params = dict(params, layers=params["layers"][:2])
+    host_params = tree_map(lambda t: t.float().cpu(), card_params)
+    card = get_model(cut)
+    host = get_model(dataclasses.replace(cut, param_dtype=torch.float32))
+    toks = rng.integers(0, cfg.vocab_size, (2, 128)).astype(np.int64)
+    outs = {}
+    for name, m, p, d in (("cpu", host, host_params, "cpu"),
+                          ("cuda", card, card_params, dev)):
+        lg, cs = m.prefill(p, {"tokens": torch.as_tensor(toks, device=d)})
+        cs = _grow(m, cs, 128 + 4)
+        seq = [lg.float().cpu()]
+        for step in range(4):
+            # both sides take the CPU's greedy token
+            nxt = torch.argmax(outs["cpu"][step] if name == "cuda"
+                               else seq[-1], -1)
+            lg, cs = m.decode_step(p, nxt.to(d), cs, 128 + step)
+            seq.append(lg.float().cpu())
+        outs[name] = seq
+    rel_b, agree, compared = [], 0, 0
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        rel_b.append(float((got - want).abs().max() / want.abs().max()))
+        top2 = torch.topk(want, 2, -1).values
+        sure = (top2[:, 0] - top2[:, 1]) > CARD_VS_CPU_REL * want.abs().max()
+        compared += int(sure.sum())
+        agree += int((torch.argmax(got, -1) == torch.argmax(want, -1))[sure]
+                     .sum())
+    check(max(rel_b) <= CARD_VS_CPU_REL,
+          f"card against CPU: {max(rel_b)} of the largest logit > "
+          f"{CARD_VS_CPU_REL}")
+    check(agree == compared, f"greedy tokens differ where the margin exceeds "
+          f"the tolerance: {agree} of {compared}")
+    emit("serve_numerics",
+         decode_vs_prefill=dict(position=SERVE_PROMPT, token=x,
+                                max_abs_gap=gap_a, rel_gap=rel_a,
+                                tolerance_rel=DECODE_VS_PREFILL_REL,
+                                top2_margin=margin_a,
+                                same_greedy_token=int(decode.argmax())
+                                == int(full.argmax())),
+         card_vs_cpu=dict(layers=2, batch=2, prompt=128, decode_steps=4,
+                          rel_gap_per_step=rel_b,
+                          tolerance_rel=CARD_VS_CPU_REL,
+                          greedy_compared=compared, greedy_equal=agree),
+         seconds=time.perf_counter() - t_phase)
+
+
+def phase_serve_profile(model, params, pool: list, timing: dict, dev,
+                        steps: int = 4) -> None:
+    """Where a decode step's time goes at full width: a torch.profiler
+    window over `steps` decode steps (batch 4 at position 512), recorded
+    after a warm-up round of as many (the profiler loses a trace's first
+    events; see `device_time`), its device time set against the
+    unprofiled step time of `serve`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    t_phase = time.perf_counter()
+    tokens = torch.as_tensor(np.stack(pool[:SERVE_PER_ROUND]).astype(np.int64),
+                             device=dev)
+    logits, caches = model.prefill(params, {"tokens": tokens})
+    caches = _grow(model, caches, SERVE_PROMPT + 2 * steps + 1)
+    tok = torch.argmax(logits, -1)
+    logits, caches = model.decode_step(params, tok, caches, SERVE_PROMPT)
+    tok = torch.argmax(logits, -1)
+    torch.cuda.synchronize()
+    traces, position = [], SERVE_PROMPT + 1
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: traces.append(
+                     p.key_averages())) as prof:
+        for _ in range(2):              # warm-up round, recorded round
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                logits, caches = model.decode_step(params, tok, caches,
+                                                   position)
+                tok = torch.argmax(logits, -1)
+                position += 1
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.step()
+    check(bool(traces), "serve_profile: the profiler recorded no trace")
+    events = [e for e in traces[-1] if not e.key.startswith("ProfilerStep")]
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+    on_host = [e for e in events if e.device_type == DeviceType.CPU]
+    device_ms = sum(e.self_device_time_total for e in on_card) / 1e3 / steps
+    step_ms = timing["decode_ms_per_step"]
+
+    def top(evs, key, n):
+        evs = sorted(evs, key=key, reverse=True)[:n]
+        return [[e.key, e.count / steps, key(e) / steps] for e in evs]
+
+    emit("serve_profile", steps=steps, batch=SERVE_PER_ROUND,
+         position=SERVE_PROMPT,
+         profiled_wall_ms_per_step=wall / steps * 1e3,
+         unprofiled_ms_per_step=step_ms,
+         host_wall_ms_per_step=timing["decode_wall_ms_per_step"],
+         device_ms_per_step=device_ms if on_card else "not measured",
+         device_busy_share=device_ms / step_ms if on_card else "not measured",
+         device_events_per_step=sum(e.count for e in on_card) / steps,
+         top_device_us_per_step=top(on_card, lambda e: e.self_device_time_total,
+                                    10),
+         top_host_us_per_step=top(on_host, lambda e: e.self_cpu_time_total, 10),
+         seconds=time.perf_counter() - t_phase)
+
+
+def phase_serving(seed: int, dev) -> None:
+    """The serving slice: serve, serve_numerics and serve_profile on one
+    set of full-width weights, freed afterwards."""
+    model, params, setup = serve_setup(seed, dev)
+    out = phase_serve(seed, model, params, setup, dev)
+    phase_serve_numerics(seed, model, params, out["pool"], dev)
+    phase_serve_profile(model, params, out["pool"], out["timing"], dev)
+    del model, params
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -877,6 +1319,7 @@ def main() -> int:
     cdn = phase_costfoo_cdn(args.seed, dev)
     full = phase_replay_full(args.seed)
     phase_replay_profile(full["trace"], full["execute_s"])
+    phase_serving(args.seed, dev)
     # each kernel's launches on its own path, counted from 0 around it
     launches = {"evict_argmin": full["launches"]["evict_argmin"],
                 "next_use": full["launches"]["next_use"],

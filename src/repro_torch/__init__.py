@@ -4,8 +4,11 @@
 copies of the host modules it needs (pricing, traces, the heap policies,
 the exact optimum, regret). `repro_torch.kernels` holds the hand-written
 CUDA kernels for Hopper (`sm_90a`), their plain PyTorch versions and the
-dispatch between them. Entry points run on the card unless the caller
-passes `device="cpu"`.
+dispatch between them. `repro_torch.serve` is the serving engine with its
+egress-billed prefix cache, over the dense transformer of
+`repro_torch.models` (configs in `repro_torch.configs`) and copies of the
+billing, governance and observability layers (`egress`, `online`, `obs`).
+Entry points run on the card unless the caller passes `device="cpu"`.
 """
 from . import core, kernels
 

@@ -86,7 +86,7 @@ def resolve_device(device=None) -> torch.device:
     if device is None:
         if not ops.on_cuda():
             raise RuntimeError("no CUDA device is available; pass "
-                               "device='cpu' to replay on the CPU")
+                               "device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
 

@@ -1,0 +1,299 @@
+"""Shared model substrate on PyTorch: configs, parameter definitions, layer
+primitives.
+
+The port of `repro.models.common`. Every architecture declares its
+parameters with `ParamDef`s (`param_defs(cfg)`); `init_params` materialises
+them on a device from a `torch.Generator`. The layer primitives repeat the
+reference's operations in its order and with its casts: the attention
+logits are formed in the parameter dtype and only then taken to float32,
+`rms_norm` multiplies the cast-back result by its weight in the parameter
+dtype, the rotary products promote to float32 and are cast back. Matrix
+products go to `torch.matmul`, as the reference leaves them to XLA.
+
+Sharding hints (`constrain`, `set_activation_mesh`, `tp_divides`) keep
+their names and do nothing yet: the port runs on one card.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+
+DEFAULT_DTYPE = torch.bfloat16
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]
+    axes: tuple[Optional[str], ...]   # logical axis names, len == ndim
+    init: str = "normal"              # normal | zeros | ones
+    scale: float = 0.02
+    dtype: Any = None                 # default -> cfg param dtype
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """One assigned architecture (exact figures from the assignment table)."""
+    name: str
+    family: str                   # dense | moe | xlstm | hybrid | encdec | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0             # 0 -> d_model // num_heads
+    rope_theta: float = 1e4
+    rope_fraction: float = 1.0    # chatglm applies RoPE to half the head dim
+    # MoE
+    num_experts: int = 0
+    top_k: int = 0
+    num_shared_experts: int = 0
+    d_expert: int = 0             # routed-expert hidden dim (d_ff of an expert)
+    moe_every: int = 1            # 1 = every layer is MoE (layer 0 stays dense
+                                  # when first_dense is set)
+    first_k_dense: int = 0
+    capacity_factor: float = 1.25
+    # local/global attention (gemma3, recurrentgemma's attn layers)
+    window: int = 0               # 0 = full attention
+    global_every: int = 0         # gemma3: every Nth layer is global
+    # hybrid (recurrentgemma): pattern period 3 -> (rec, rec, attn)
+    attn_every: int = 0
+    rglru_conv_width: int = 4
+    # enc-dec (whisper)
+    encoder_layers: int = 0
+    cross_attend: bool = False
+    # vlm
+    num_vision_tokens: int = 0
+    mrope_sections: tuple[int, ...] = ()
+    # activations / norms
+    act: str = "swiglu"           # swiglu | gelu
+    logit_softcap: float = 0.0
+    # dtypes
+    param_dtype: Any = DEFAULT_DTYPE
+    # training
+    tie_embeddings: bool = False
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.num_heads // self.num_kv_heads
+
+    def is_moe_layer(self, layer: int) -> bool:
+        if self.num_experts == 0:
+            return False
+        if layer < self.first_k_dense:
+            return False
+        return (layer % self.moe_every) == (self.moe_every - 1) \
+            if self.moe_every > 1 else True
+
+    def is_global_layer(self, layer: int) -> bool:
+        """gemma3: 5 local : 1 global."""
+        if self.global_every <= 0:
+            return self.window == 0
+        return (layer % self.global_every) == (self.global_every - 1)
+
+    def is_attn_layer(self, layer: int) -> bool:
+        """recurrentgemma: (rec, rec, attn) repeating."""
+        if self.attn_every <= 0:
+            return True
+        return (layer % self.attn_every) == (self.attn_every - 1)
+
+
+# ---------------------------------------------------------------------------
+# parameter materialization
+# ---------------------------------------------------------------------------
+
+def tree_map(fn, tree: Any) -> Any:
+    """Apply `fn` to every leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, ParamDef):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of a tree of dicts and lists, in its order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def init_params(defs: Any, generator: torch.Generator, dtype,
+                device=None) -> Any:
+    """Materialise a ParamDef tree on `device` (the generator's own device
+    when None): normal draws in float32 times the scale, then cast; zeros;
+    ones. One generator draws every leaf in the tree's order; the values are
+    not JAX's (parity tests carry JAX's weights across instead)."""
+    device = generator.device if device is None else torch.device(device)
+
+    def make(d: ParamDef) -> torch.Tensor:
+        dt = d.dtype or dtype
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=dt, device=device)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=dt, device=device)
+        x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return (x * d.scale).to(dt)
+
+    return tree_map(make, defs)
+
+
+# ---------------------------------------------------------------------------
+# activation sharding hints: no-ops on one card (ROADMAP queue 1, item 9)
+# ---------------------------------------------------------------------------
+
+def set_activation_mesh(mesh):
+    """Launcher hook of the reference; the port has no mesh yet."""
+    if mesh is not None:
+        raise NotImplementedError("sharding is ROADMAP queue 1, item 9")
+
+
+def constrain(x, *axes):
+    """Sharding hint of the reference; the identity on one card."""
+    return x
+
+
+DP_AXES = ("pod", "data")
+
+
+def tp_divides(n: int) -> bool:
+    """False: no mesh, so no tensor-parallel axis."""
+    return False
+
+
+# ---------------------------------------------------------------------------
+# layer primitives
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, w, eps=1e-6):
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), -1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def _rope_angles(positions, dim, theta):
+    """positions (...,), dim even -> (..., dim/2) angles."""
+    dev = positions.device
+    freq = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                         device=dev) / dim))
+    return positions.to(torch.float32)[..., None] * freq
+
+
+def apply_rope(x, positions, theta=1e4, fraction=1.0):
+    """x: (B, S, H, D). Rotates the first `fraction` of D."""
+    D = x.shape[-1]
+    rd = int(D * fraction)
+    rd -= rd % 2
+    xr, xp = x[..., :rd], x[..., rd:]
+    ang = _rope_angles(positions, rd, theta)          # (B, S, rd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    o1 = x1 * cos - x2 * sin
+    o2 = x1 * sin + x2 * cos
+    out = torch.stack([o1, o2], dim=-1).reshape(xr.shape)
+    return torch.cat([out.to(x.dtype), xp], -1) if rd < D else out.to(x.dtype)
+
+
+def _mask(Sq, Sk, causal, window, q_offset, k_offset, device, kidx=None,
+          k_valid=None):
+    """(Sq, Sk) bool: the key is at a position >= 0, and (causal) not after
+    the query, and (window) within the last `window` positions."""
+    qpos = torch.arange(Sq, device=device) + q_offset
+    if kidx is None:
+        kidx = torch.arange(Sk, device=device)
+    kpos = kidx + k_offset
+    mask = (kpos[None, :] >= 0).expand(Sq, Sk)
+    if k_valid is not None:
+        mask = mask & (kidx[None, :] < k_valid)
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    if window > 0:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    return mask
+
+
+def attention(q, k, v, *, causal=True, window=0, q_offset=0, k_offset=0,
+              logit_softcap=0.0):
+    """GQA attention, full materialization. q: (B, Sq, H, D); k/v: (B, Sk, G, D).
+
+    `q_offset` positions the queries inside the kv timeline (decode /
+    chunked prefill); `k_offset` positions the keys (shift-window caches,
+    possibly negative — negative key positions are masked out).
+    `window` > 0 limits attention to the last W keys.
+    """
+    B, Sq, H, D = q.shape
+    G = k.shape[2]
+    q = q.reshape(B, Sq, G, H // G, D)
+    logits = torch.einsum("bqghd,bkgd->bgqhk", q, k).to(torch.float32)
+    logits = logits * (1.0 / math.sqrt(D))
+    if logit_softcap > 0:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    mask = _mask(Sq, k.shape[1], causal, window, q_offset, k_offset, q.device)
+    # a Python scalar: a tensor made from one here would be a copy to the
+    # card, which waits for the stream
+    logits = torch.where(mask[None, None, :, None, :], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bgqhk,bkgd->bqghd", probs, v)
+    return out.reshape(B, Sq, H * D)
+
+
+def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                      k_offset=0, logit_softcap=0.0, kv_chunk=1024):
+    """Online-softmax attention over KV chunks, a Python loop in place of
+    the reference's `lax.scan`: the live score slab is O(Sq * kv_chunk)
+    instead of O(Sq * Sk). KV heads are expanded to the full H inside the
+    loop, as the reference does."""
+    B, Sq, H, D = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    rep = H // G
+    nchunks = -(-Sk // kv_chunk)
+    pad = nchunks * kv_chunk - Sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    m = torch.full((B, H, Sq), -1e30, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=dev)
+    for ci in range(nchunks):
+        sl = slice(ci * kv_chunk, (ci + 1) * kv_chunk)
+        kbh = torch.repeat_interleave(k[:, sl], rep, dim=2)  # (B, chunk, H, D)
+        vbh = torch.repeat_interleave(v[:, sl], rep, dim=2)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, kbh).to(torch.float32) \
+            * scale
+        if logit_softcap > 0:
+            logits = logit_softcap * torch.tanh(logits / logit_softcap)
+        kidx = ci * kv_chunk + torch.arange(kv_chunk, device=dev)
+        mask = _mask(Sq, kv_chunk, causal, window, q_offset, k_offset, dev,
+                     kidx=kidx, k_valid=Sk)
+        logits = torch.where(mask[None, None, :, :], logits, -1e30)
+        m_new = torch.maximum(m, logits.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(q.dtype), vbh).to(torch.float32)
+        m = m_new
+    out = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+    return out.transpose(1, 2).reshape(B, Sq, H * D)
+
+
+def ffn(x, w1, w3, w2, act="swiglu"):
+    if act == "swiglu":
+        h = F.silu(x @ w1) * (x @ w3)
+    else:
+        h = F.gelu(x @ w1, approximate="tanh")   # jax.nn.gelu's default
+    return h @ w2

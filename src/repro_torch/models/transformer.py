@@ -1,0 +1,237 @@
+"""Decoder-only transformer backbone on PyTorch: the dense family.
+
+The port of `repro.models.transformer` for chatglm3-6b, phi4-mini-3.8b,
+mistral-nemo-12b and gemma3-4b (5:1 local:global windows). Layers are
+per-layer parameter dicts applied in a Python loop, as in the reference;
+the stacked (scanned) layout, MoE layers and M-RoPE are not ported yet and
+raise (ROADMAP queue 1, item 7).
+
+Decode writes each new key and value into the preallocated cache in place
+(the reference's `dynamic_update_slice` builds a new array); a write past
+the cache's end raises where the reference would clamp the index.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .common import (ArchConfig, ParamDef, apply_rope, attention,
+                     chunked_attention, ffn, rms_norm)
+
+# attention score materialization is capped; larger S*K uses the chunked
+# (online-softmax) path, as in the reference
+_FULL_ATTN_LIMIT = 2048 * 2048
+
+_MOE = "MoE layers are ROADMAP queue 1, item 7 (models/moe.py)"
+_MROPE = "M-RoPE (the vlm family) is ROADMAP queue 1, item 7"
+
+
+def _attn_defs(cfg: ArchConfig) -> dict:
+    d, H, G, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    return {
+        "wq": ParamDef((d, H * hd), ("embed", "heads")),
+        "wk": ParamDef((d, G * hd), ("embed", "kv_heads")),
+        "wv": ParamDef((d, G * hd), ("embed", "kv_heads")),
+        "wo": ParamDef((H * hd, d), ("heads", "embed")),
+    }
+
+
+def _ffn_defs(cfg: ArchConfig, d_ff: int) -> dict:
+    d = cfg.d_model
+    if cfg.act == "swiglu":
+        return {
+            "w1": ParamDef((d, d_ff), ("embed", "mlp")),
+            "w3": ParamDef((d, d_ff), ("embed", "mlp")),
+            "w2": ParamDef((d_ff, d), ("mlp", "embed")),
+        }
+    return {
+        "w1": ParamDef((d, d_ff), ("embed", "mlp")),
+        "w2": ParamDef((d_ff, d), ("mlp", "embed")),
+    }
+
+
+def layer_defs(cfg: ArchConfig, layer: int) -> dict:
+    if cfg.is_moe_layer(layer):
+        raise NotImplementedError(_MOE)
+    return {
+        "ln1": ParamDef((cfg.d_model,), ("embed",), init="ones"),
+        "ln2": ParamDef((cfg.d_model,), ("embed",), init="ones"),
+        "attn": _attn_defs(cfg),
+        "ffn": _ffn_defs(cfg, cfg.d_ff),
+    }
+
+
+def param_defs(cfg: ArchConfig) -> dict:
+    return {
+        "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                          scale=1.0),
+        "layers": [layer_defs(cfg, l) for l in range(cfg.num_layers)],
+        "ln_f": ParamDef((cfg.d_model,), ("embed",), init="ones"),
+        "unembed": ParamDef((cfg.d_model, cfg.vocab_size), ("embed", "vocab")),
+    }
+
+
+def stacked_param_defs(cfg: ArchConfig) -> dict:
+    raise NotImplementedError("the stacked (scanned) layer layout is ROADMAP "
+                              "queue 1, item 7, with the MoE giants")
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+def _positions(B: int, S: int, device):
+    return torch.arange(S, dtype=torch.int32, device=device)[None, :] \
+        .expand(B, S)
+
+
+def _rotate(cfg: ArchConfig, q, k, positions):
+    if cfg.mrope_sections:
+        raise NotImplementedError(_MROPE)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    return q, k
+
+
+def _layer_window(cfg: ArchConfig, layer: int) -> int:
+    """Effective sliding window for this layer (0 = full attention)."""
+    if cfg.global_every > 0:  # gemma3 local:global pattern
+        return 0 if cfg.is_global_layer(layer) else cfg.window
+    return cfg.window
+
+
+def _write(cache, x, at: int):
+    """Write x (B, S, G, hd) into cache (B, W, G, hd) at position `at`, in
+    place. The reference's dynamic_update_slice clamps an index that runs
+    past the end; this raises instead."""
+    W, S = cache.shape[1], x.shape[1]
+    if not 0 <= at <= W - S:
+        raise IndexError(f"cache write at {at} of {S} keys past a cache of "
+                         f"{W}")
+    cache[:, at:at + S] = x.to(cache.dtype)
+    return cache
+
+
+def _self_attn(cfg: ArchConfig, p, x, positions, *, layer: int, q_offset=0,
+               kv_cache=None):
+    """Returns (out, new_kv). kv_cache: (k, v) with layout (B, Sk, G, hd).
+
+    Decode caches shorter than the timeline are *shift* caches (local
+    windowed layers): the oldest key drops off the front and keys live at
+    absolute positions q_offset-W+1..q_offset (k_offset masks the unfilled
+    prefix). Any other cache is a full timeline written at q_offset.
+    """
+    B, S, _ = x.shape
+    H, G, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, G, hd)
+    v = (x @ p["wv"]).reshape(B, S, G, hd)
+    q, k = _rotate(cfg, q, k, positions)
+    window = _layer_window(cfg, layer)
+    k_offset = 0
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        W = ck.shape[1]
+        if S == 1 and window > 0 and W <= window:
+            # shift cache: holds exactly the last W roped keys in order
+            ck = torch.cat([ck[:, 1:], k.to(ck.dtype)], dim=1)
+            cv = torch.cat([cv[:, 1:], v.to(cv.dtype)], dim=1)
+            k_offset = int(q_offset) - W + 1
+        else:
+            # full cache: write at q_offset (preallocated timeline)
+            ck = _write(ck, k, int(q_offset))
+            cv = _write(cv, v, int(q_offset))
+        k, v = ck, cv
+        new_cache = (ck, cv)
+    else:
+        new_cache = (k, v)
+    attn_fn = attention if q.shape[1] * k.shape[1] <= _FULL_ATTN_LIMIT \
+        else chunked_attention
+    out = attn_fn(q, k.to(q.dtype), v.to(q.dtype), causal=True,
+                  window=window, q_offset=q_offset, k_offset=k_offset,
+                  logit_softcap=cfg.logit_softcap)
+    return out @ p["wo"], new_cache
+
+
+def _ffn(cfg: ArchConfig, p, hin):
+    if "moe" in p:
+        raise NotImplementedError(_MOE)
+    return ffn(hin, p["ffn"]["w1"], p["ffn"].get("w3"), p["ffn"]["w2"],
+               cfg.act)
+
+
+def _block(cfg: ArchConfig, p, x, positions, *, layer: int, q_offset=0,
+           kv_cache=None):
+    h, new_cache = _self_attn(cfg, p["attn"], rms_norm(x, p["ln1"]), positions,
+                              layer=layer, q_offset=q_offset, kv_cache=kv_cache)
+    x = x + h
+    x = x + _ffn(cfg, p, rms_norm(x, p["ln2"]))
+    return x, new_cache
+
+
+def _embed_inputs(cfg: ArchConfig, params, batch):
+    if cfg.num_vision_tokens > 0:
+        raise NotImplementedError(_MROPE)
+    return params["embed"][batch["tokens"]].to(cfg.param_dtype)
+
+
+def _logits(params, x):
+    """The final `x.f32 @ unembed.f32`, as the reference computes it: the
+    unembed is cast to float32 on every call (no copy is kept)."""
+    return x.to(torch.float32) @ params["unembed"].to(torch.float32)
+
+
+def forward(cfg: ArchConfig, params, batch):
+    """Full-sequence forward -> logits (B, S, V) in f32."""
+    x = _embed_inputs(cfg, params, batch)
+    B, S, _ = x.shape
+    positions = _positions(B, S, x.device)
+    for l, p in enumerate(params["layers"]):
+        x, _ = _block(cfg, p, x, positions, layer=l)
+    x = rms_norm(x, params["ln_f"])
+    return _logits(params, x)
+
+
+def prefill(cfg: ArchConfig, params, batch):
+    """Forward + return per-layer KV caches and last-position logits.
+
+    Windowed (local) layers keep only their last W keys as a shift cache,
+    left-padded with zeros when the prompt is shorter than W."""
+    x = _embed_inputs(cfg, params, batch)
+    B, S, _ = x.shape
+    positions = _positions(B, S, x.device)
+    caches = []
+    for l, p in enumerate(params["layers"]):
+        x, kv = _block(cfg, p, x, positions, layer=l)
+        W = _layer_window(cfg, l)
+        if W and S >= W:
+            kv = (kv[0][:, S - W:], kv[1][:, S - W:])
+        elif W:
+            kv = (F.pad(kv[0], (0, 0, 0, 0, W - S, 0)),
+                  F.pad(kv[1], (0, 0, 0, 0, W - S, 0)))
+        caches.append(kv)
+    x = rms_norm(x[:, -1:], params["ln_f"])
+    return _logits(params, x)[:, 0], caches
+
+
+def decode_step(cfg: ArchConfig, params, token, caches, position):
+    """One decode step against preallocated KV caches.
+
+    token: (B,) int; caches: list of (k, v) each (B, S_max, G, hd), written
+    in place where they are full timelines; position: the current write
+    index (an int). Returns (logits (B, V), new caches).
+    """
+    B = token.shape[0]
+    position = int(position)
+    x = params["embed"][token][:, None].to(cfg.param_dtype)
+    positions = torch.full((B, 1), position, dtype=torch.int32,
+                           device=x.device)
+    new_caches = []
+    for l, p in enumerate(params["layers"]):
+        h, kv = _self_attn(cfg, p["attn"], rms_norm(x, p["ln1"]), positions,
+                           layer=l, q_offset=position, kv_cache=caches[l])
+        x = x + h
+        x = x + _ffn(cfg, p, rms_norm(x, p["ln2"]))
+        new_caches.append(kv)
+    x = rms_norm(x, params["ln_f"])
+    return _logits(params, x)[:, 0], new_caches

@@ -1,7 +1,7 @@
-"""The port's CUDA kernels and its replay on the card, against their plain
-PyTorch versions. Every test is marked `cuda` and skips where torch sees no
-card. This file imports no JAX, so it runs on a machine that has only the
-port's dependencies:
+"""The port's CUDA kernels, its replay and its serving engine on the card,
+against their plain PyTorch versions and the CPU. Every test is marked
+`cuda` and skips where torch sees no card. This file imports no JAX, so it
+runs on a machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
@@ -19,6 +19,11 @@ from repro_torch.kernels.interval_occupancy import (error_chain,
                                                     occupancy_feasible_cuda)
 from repro_torch.kernels import _build
 from repro_torch.kernels.next_use import next_use_cuda, plan
+from repro_torch.configs import get_config
+from repro_torch.models import get_model
+from repro_torch.models.common import tree_map
+from repro_torch.serve import Request, ServeEngine
+from repro_torch.serve.engine import _grow
 
 pytestmark = pytest.mark.cuda
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -437,3 +442,44 @@ def test_cost_foo_validate_on_card_matches_cpu(cuda):
     assert (card.lower, card.upper, card.bracket) == \
         (host.lower, host.upper, host.bracket)
 
+
+
+@pytest.mark.parametrize("arch,capacity", [("phi4-mini-3.8b", 3400),
+                                           ("gemma3-4b", 13000)])
+def test_serve_engine_on_card_matches_cpu(cuda, arch, capacity):
+    """The smoke-config engine on the card bills exactly what the same
+    engine bills on the CPU (the bill depends only on the keys and the
+    blobs' lengths), and its bf16 prefill and decode logits agree with the
+    CPU's within bf16 tolerance (rtol 2e-2, atol 1e-2: a few units in the
+    last place of an 8-bit mantissa, the two devices sum in other orders)."""
+    model = get_model(get_config(arch, smoke=True))
+    host = model.init(0, device="cpu")
+    card = tree_map(lambda t: t.to(cuda), host)
+    kw = dict(prefix_cache_bytes=capacity, govern=True, governor_window=4)
+    engines = {"cpu": ServeEngine(model, host, device="cpu", **kw),
+               "cuda": ServeEngine(model, card, **kw)}
+    rng = np.random.default_rng(3)
+    pool = [rng.integers(0, 256, n).astype(np.int32) for n in (8, 8, 16, 16)]
+    rounds = [[pool[i] for i in rng.choice(4, 3)] for _ in range(8)]
+    for engine in engines.values():
+        for r, prompts in enumerate(rounds):
+            engine.serve([Request(10 * r + j, p, 3)
+                          for j, p in enumerate(prompts)])
+    a, b = engines["cpu"], engines["cuda"]
+    assert b.store.meter.snapshot() == a.store.meter.snapshot()
+    assert (b.cache.hits, b.cache.misses) == (a.cache.hits, a.cache.misses)
+    assert b.audit() == a.audit()
+    assert b.governance_snapshot()["metrics"] == \
+        a.governance_snapshot()["metrics"]
+    assert {k: len(v) for k, v in b.store._data.items()} == \
+        {k: len(v) for k, v in a.store._data.items()}
+    tokens = torch.from_numpy(np.stack(pool[2:]).astype(np.int64))
+    nxt = torch.tensor([5, 7])
+    got = {}
+    for dev, params in (("cpu", host), ("cuda", card)):
+        prefill, caches = model.prefill(params, {"tokens": tokens.to(dev)})
+        decode, _ = model.decode_step(params, nxt.to(dev),
+                                      _grow(model, caches, 18), 16)
+        got[dev] = [x.float().cpu().numpy() for x in (prefill, decode)]
+    for on_card, on_host in zip(got["cuda"], got["cpu"]):
+        np.testing.assert_allclose(on_card, on_host, rtol=2e-2, atol=1e-2)
