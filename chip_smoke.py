@@ -3,30 +3,44 @@
     python3 chip_smoke.py [--seed 1]
 
 Run from the root of a checkout on a machine with an H100 and the CUDA
-toolkit. It builds the CUDA kernels from `src/repro_torch/kernels/csrc`,
-holds each kernel against its plain PyTorch version on the card, replays the
-paper's (policy x price vector x budget) grid on a 20k-request trace on the
-card with kernels, on the card without, and on the CPU (the three grids must
-be bit-equal), scores the dollars against the exact optimum, checks the
-exact optimum's schedules through the occupancy scan, brackets the
-dollar-optimum of a 200k-request variable-size CDN trace with cost-FOO
-(its rounded schedule checked on the card, the bracket equal to a CPU
-run's), then runs the full-size sweep (200k requests, 20k objects, 96
-cells) through the kernels. It then serves at phi4-mini-3.8b's full width
-through the egress-billed engine, its bill held bit for bit against a
-host-only replay, checks decode against prefill and the card against the
-CPU, and profiles the decode step. It prints one JSON line per phase, the
-`nvidia-smi` name and power limit, one line that lists every kernel with
-its time beside its bound, and last `{"ok": true, "device": {...}}`. Any
-failed check raises and exits non-zero; without a CUDA device it exits
-non-zero before printing any result.
+toolkit. Its phases, in order, each printing one JSON line:
+
+* `kernel_checks`: build the CUDA kernels from
+  `src/repro_torch/kernels/csrc` and hold each against its plain PyTorch
+  version on the card.
+* `replay_parity`, `regret`, `opt_occupancy`: replay the paper's (policy x
+  price vector x budget) grid on a 20k-request trace on the card with
+  kernels, on the card without, and on the CPU (the three grids must be
+  bit-equal), score the dollars against the exact optimum, and check the
+  optimum's schedules through the occupancy scan.
+* `costfoo_cdn`: bracket the dollar-optimum of a 200k-request
+  variable-size CDN trace with cost-FOO, its rounded schedule checked on
+  the card, the bracket equal to a CPU run's.
+* `replay_full`, `replay_profile`: the full-size sweep (200k requests, 20k
+  objects, 96 cells) through the kernels, and where its step's time goes.
+* `serve`, `serve_numerics`, `serve_profile`: phi4-mini-3.8b at full width
+  through the egress-billed, governed engine, its bill held bit for bit
+  against a host-only replay; decode against prefill and the card against
+  the CPU; the decode step profiled.
+* `serve_moe`, `serve_moe_numerics`, `serve_moe_profile`, `serve_fleet`:
+  the same for qwen2-moe-a2.7b at full width (the MoE family), then the
+  same stream through the engine's fleet mode, its bill reconciled across
+  hosts, store and a host-only fleet, its tokens those of `serve_moe`.
+* the kernel line: every kernel with its time beside its bound.
+
+It then prints the `nvidia-smi` name and power limit and last
+`{"ok": true, "device": {...}}`. Any failed check raises and exits
+non-zero; without a CUDA device it exits non-zero before printing any
+result.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -46,7 +60,8 @@ from repro_torch.core import (PRICE_VECTORS, Trace, cost_foo,  # noqa: E402
 from repro_torch.core.trace import next_use_indices  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.egress import EgressCache, ObjectStore  # noqa: E402
-from repro_torch.models import get_model  # noqa: E402
+from repro_torch.fleet import Fleet  # noqa: E402
+from repro_torch.models import get_model, moe, transformer  # noqa: E402
 from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.obs import EventLog, Tracer  # noqa: E402
 from repro_torch.online import (DollarGovernor, MetricsRegistry,  # noqa: E402
@@ -959,9 +974,10 @@ def blob_bytes(cfg, S: int) -> int:
     return cfg.num_layers * S * cfg.num_kv_heads * cfg.hd * 2
 
 
-def serve_setup(seed: int, dev) -> tuple:
-    """phi4-mini-3.8b at full width, its weights drawn on the card."""
-    cfg = get_config(SERVE_ARCH)
+def serve_setup(seed: int, dev, arch: str = SERVE_ARCH) -> tuple:
+    """An architecture at full width (phi4-mini-3.8b unless named), its
+    weights drawn on the card."""
+    cfg = get_config(arch)
     model = get_model(cfg)
     t0 = time.perf_counter()
     params = model.init(seed, device=dev)
@@ -1034,40 +1050,35 @@ def time_prefill_decode(model, params, tokens: torch.Tensor,
                 decode_wall_ms_per_step=wall / steps * 1e3)
 
 
-def phase_serve(seed: int, model, params, setup: dict, dev) -> dict:
-    """ServeEngine.serve at full width, governed, traced and logged: eight
-    rounds of four prompts drawn by Zipf(1.1) from a pool of eight 512-token
-    prompts (32 MiB blobs; the cache holds four), with one 2304-token
-    prompt (a 144 MiB blob, larger than the cache, so its re-fetch is
-    rejected after billing; 2304^2 query x key takes chunked_attention) in
-    rounds 4 and 8. The bill is held against a host-only replay."""
-    t_phase = time.perf_counter()
-    cfg = model.cfg
-    V = cfg.vocab_size
+def serve_requests(seed: int, V: int) -> tuple:
+    """The serve phases' request stream: a pool of eight 512-token prompts,
+    one 2304-token prompt, and eight rounds of (rid, prompt, new tokens):
+    four prompts drawn by Zipf(1.1) from the pool, and the long prompt in
+    rounds 4 and 8."""
     rng = np.random.default_rng(seed)
     pool = [rng.integers(0, V, SERVE_PROMPT).astype(np.int32)
             for _ in range(SERVE_POOL)]
     long_prompt = rng.integers(0, V, SERVE_LONG).astype(np.int32)
     weights = 1.0 / np.arange(1, SERVE_POOL + 1) ** SERVE_ZIPF
-    capacity = 4 * blob_bytes(cfg, SERVE_PROMPT)
-    check(capacity == 1 << 27 and blob_bytes(cfg, SERVE_LONG) > capacity,
-          f"cache {capacity} bytes: the pool's blobs are not 32 MiB")
-    tracer, events = Tracer(), EventLog()
-    engine = ServeEngine(model, params, prefix_cache_bytes=capacity,
-                         policy="gdsf", govern=True,
-                         governor_window=SERVE_WINDOW, tracer=tracer,
-                         events=events)
-    ops.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    rid, round_s = 0, []
+    rounds, rid = [], 0
     for r in range(SERVE_ROUNDS):
         picks = rng.choice(SERVE_POOL, SERVE_PER_ROUND,
                            p=weights / weights.sum())
-        reqs = [Request(rid + j, pool[i], SERVE_NEW)
-                for j, i in enumerate(picks)]
+        reqs = [(rid + j, pool[i], SERVE_NEW) for j, i in enumerate(picks)]
         if r % 4 == 3:
-            reqs.append(Request(rid + len(reqs), long_prompt, SERVE_LONG_NEW))
+            reqs.append((rid + len(reqs), long_prompt, SERVE_LONG_NEW))
         rid += len(reqs)
+        rounds.append(reqs)
+    return pool, long_prompt, rounds
+
+
+def serve_rounds(engine, rounds: list, V: int) -> tuple:
+    """Serve each round as one call, synchronised at its end; every output
+    checked for its length and range. Returns the rounds' seconds and the
+    tokens by rid."""
+    round_s, outputs = [], {}
+    for rnd in rounds:
+        reqs = [Request(rid, prompt, n) for rid, prompt, n in rnd]
         t0 = time.perf_counter()
         engine.serve(reqs)
         torch.cuda.synchronize()
@@ -1076,11 +1087,18 @@ def phase_serve(seed: int, model, params, setup: dict, dev) -> dict:
             check(q.output.shape == (q.max_new_tokens,)
                   and bool(((q.output >= 0) & (q.output < V)).all()),
                   f"request {q.rid}: bad output {q.output}")
-    launches = ops.launch_counts()
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            outputs[q.rid] = q.output
+    return round_s, outputs
 
+
+def billing_checks(engine, tracer, events, cfg, prompts: list,
+                   capacity: float) -> dict:
+    """The governed engine's bill, held bit for bit: every blob
+    L*S*G*hd*2 bytes, GETs = misses, span dollars = meter (rel 1e-12), miss
+    events = meter, an evict and a reject, and a host-only replay of the
+    engine's key sequence billing and auditing alike."""
     store, cache, meter = engine.store, engine.cache, engine.cache.meter
-    length = {_prefix_key(p): len(p) for p in pool + [long_prompt]}
+    length = {_prefix_key(p): len(p) for p in prompts}
     sizes = {k: store.size_of(k) for k in store.keys()}
     for key, n in sizes.items():
         check(n == blob_bytes(cfg, length[key]),
@@ -1104,6 +1122,41 @@ def phase_serve(seed: int, model, params, setup: dict, dev) -> dict:
           "the host-only replay bills otherwise than the engine")
     check(dataclasses.asdict(r_cache.audit()) == dataclasses.asdict(audit),
           "the host-only replay audits otherwise than the engine")
+    check(audit.opt_dollars_lower <= meter.dollars * (1 + 1e-5),
+          f"OPT {audit.opt_dollars_lower} above the bill {meter.dollars}")
+    return dict(kinds=kinds, audit=audit, span_dollars=span_dollars)
+
+
+def phase_serve(seed: int, model, params, setup: dict, dev) -> dict:
+    """ServeEngine.serve at full width, governed, traced and logged: eight
+    rounds of four prompts drawn by Zipf(1.1) from a pool of eight 512-token
+    prompts (32 MiB blobs; the cache holds four), with one 2304-token
+    prompt (a 144 MiB blob, larger than the cache, so its re-fetch is
+    rejected after billing; 2304^2 query x key takes chunked_attention) in
+    rounds 4 and 8. The bill is held against a host-only replay."""
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    V = cfg.vocab_size
+    pool, long_prompt, rounds = serve_requests(seed, V)
+    capacity = 4 * blob_bytes(cfg, SERVE_PROMPT)
+    check(capacity == 1 << 27 and blob_bytes(cfg, SERVE_LONG) > capacity,
+          f"cache {capacity} bytes: the pool's blobs are not 32 MiB")
+    tracer, events = Tracer(), EventLog()
+    engine = ServeEngine(model, params, prefix_cache_bytes=capacity,
+                         policy="gdsf", govern=True,
+                         governor_window=SERVE_WINDOW, tracer=tracer,
+                         events=events)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    round_s, _ = serve_rounds(engine, rounds, V)
+    rid = sum(len(rnd) for rnd in rounds)
+    launches = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    store, cache, meter = engine.store, engine.cache, engine.cache.meter
+    bill = billing_checks(engine, tracer, events, cfg, pool + [long_prompt],
+                          capacity)
+    kinds, audit, span_dollars = bill["kinds"], bill["audit"], \
+        bill["span_dollars"]
 
     again = [engine.serve([Request(rid + i, pool[0], SERVE_NEW)])[0].output
              for i in range(2)]
@@ -1227,12 +1280,14 @@ def phase_serve_numerics(seed: int, model, params, pool: list, dev) -> None:
 
 
 def phase_serve_profile(model, params, pool: list, timing: dict, dev,
-                        steps: int = 4) -> None:
+                        steps: int = 4, phase: str = "serve_profile") -> None:
     """Where a decode step's time goes at full width: a torch.profiler
     window over `steps` decode steps (batch 4 at position 512), recorded
     after a warm-up round of as many (the profiler loses a trace's first
     events; see `device_time`), its device time set against the
-    unprofiled step time of `serve`."""
+    unprofiled step time of `serve`. For an MoE model it also gives the
+    device time of `aten::index`: the expert-weight gathers (`w1[gi]`,
+    `w3[gi]`, `w2[gi]` in every layer) and the step's embedding lookup."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     t_phase = time.perf_counter()
@@ -1270,7 +1325,18 @@ def phase_serve_profile(model, params, pool: list, timing: dict, dev,
         evs = sorted(evs, key=key, reverse=True)[:n]
         return [[e.key, e.count / steps, key(e) / steps] for e in evs]
 
-    emit("serve_profile", steps=steps, batch=SERVE_PER_ROUND,
+    extra = {}
+    if model.cfg.family == "moe":
+        index = [e for e in on_host if e.key == "aten::index"]
+        index_ms = sum(e.device_time_total for e in index) / 1e3 / steps
+        launch = [e for e in on_host if e.key == "cudaLaunchKernel"]
+        extra = dict(cuda_launch_kernel_calls_per_step=sum(
+                         e.count for e in launch) / steps,
+                     index_calls_per_step=sum(e.count for e in index) / steps,
+                     index_device_ms_per_step=index_ms,
+                     index_share_of_device=index_ms / device_ms
+                     if device_ms else "not measured")
+    emit(phase, steps=steps, batch=SERVE_PER_ROUND,
          position=SERVE_PROMPT,
          profiled_wall_ms_per_step=wall / steps * 1e3,
          unprofiled_ms_per_step=step_ms,
@@ -1281,7 +1347,7 @@ def phase_serve_profile(model, params, pool: list, timing: dict, dev,
          top_device_us_per_step=top(on_card, lambda e: e.self_device_time_total,
                                     10),
          top_host_us_per_step=top(on_host, lambda e: e.self_cpu_time_total, 10),
-         seconds=time.perf_counter() - t_phase)
+         **extra, seconds=time.perf_counter() - t_phase)
 
 
 def phase_serving(seed: int, dev) -> None:
@@ -1291,6 +1357,406 @@ def phase_serving(seed: int, dev) -> None:
     out = phase_serve(seed, model, params, setup, dev)
     phase_serve_numerics(seed, model, params, out["pool"], dev)
     phase_serve_profile(model, params, out["pool"], out["timing"], dev)
+    del model, params
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# serving the MoE family: qwen2-moe-a2.7b at full width
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_PARAMS = 14_315_587_584
+MOE_CACHE_BYTES = 192 << 20       # four 48 MiB blobs of 512-token prefixes
+MOE_FLEET_NODES = 3
+F32_PEAK_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
+# serve_moe_numerics tolerances, on max|gap| / max|reference logit|, fixed
+# before any run:
+# (a) decode against prefill, both bf16 on the card through 24 layers, as
+#     serve_numerics (a): 2^-4. Prefill drops tokens past an expert's
+#     capacity by design and decode never does, so this check alone sets
+#     capacity_factor = E/K, which gives C >= S: prefill drops nothing.
+# (b) the card against the CPU on a two-layer cut, both in float32 with
+#     TF32 off (in bf16 a routing flip between the two sides would set the
+#     gap): the two sum products in other orders, a few float32 ulps per
+#     op; 2^-12 of the largest logit. Every token whose K-th gate leads its
+#     (K+1)-th by more than MOE_GATE_GAP picks the same experts on both.
+MOE_DECODE_VS_PREFILL_REL = 2.0 ** -4
+MOE_CARD_VS_CPU_REL = 2.0 ** -12
+MOE_GATE_GAP = 1e-4
+
+
+@contextlib.contextmanager
+def moe_calls():
+    """Record every MoE layer call of the port's transformer, in call
+    order: its input and its top-k experts (by `moe.route`, the function
+    the layer itself routes with). The layer's output is unchanged."""
+    log = []
+    real = transformer.moe_ffn_apply
+
+    def recorded(cfg, p, x):
+        log.append((x, p, moe.route(cfg, p, x)[1]))
+        return real(cfg, p, x)
+    transformer.moe_ffn_apply = recorded
+    try:
+        yield log
+    finally:
+        transformer.moe_ffn_apply = real
+
+
+def moe_prefill_ops(cfg, B: int, S: int) -> dict:
+    """The operations one prefill of B rows of S tokens does, counted as the
+    reference computes them: bf16 products (q, k, v, o; causal attention
+    over half the S^2 square; the routed experts over E*C slots a row, not
+    S*K tokens; the shared experts) and float32 ones (the router, and the
+    last position's `x.f32 @ unembed.f32`)."""
+    d, H, G, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    E, fe = cfg.num_experts, cfg.d_expert
+    fs, n = fe * cfg.num_shared_experts, B * S
+    C = moe.capacity(cfg, S)
+    L = cfg.num_layers
+    check(all(cfg.is_moe_layer(l) for l in range(L)), "a dense layer")
+    bf16 = L * (2 * n * (2 * d * H * hd + 2 * d * G * hd)
+                + 2 * H * hd * B * S * (S + 1)
+                + 2 * 3 * B * E * C * d * fe
+                + 2 * 3 * n * d * fs)
+    f32 = L * 2 * n * d * E + 2 * B * d * cfg.vocab_size
+    return dict(bf16=bf16, f32=f32)
+
+
+def moe_weight_bytes(cfg, experts_read: float) -> int:
+    """Bytes of the weights one decode step must read once: every weight
+    but the routed experts, and `experts_read` experts' three matrices
+    summed over the layers (the distinct experts the batch routes to)."""
+    d, H, G, hd, L = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
+                      cfg.num_layers)
+    fe, fs = cfg.d_expert, cfg.d_expert * cfg.num_shared_experts
+    per_layer = (2 * d * H * hd + 2 * d * G * hd + 3 * d * fs + 2 * d) * 2 \
+        + d * cfg.num_experts * 4
+    return int(L * per_layer + experts_read * 3 * d * fe * 2
+               + (cfg.d_model * cfg.vocab_size + d) * 2)
+
+
+def decode_experts(model, params, tokens: torch.Tensor, steps: int) -> list:
+    """The distinct experts each layer reads in each of the `steps` decode
+    steps that `time_prefill_decode` times (the same prefill, warm-up step
+    and positions; routing is deterministic)."""
+    B, S = tokens.shape
+    logits, caches = model.prefill(params, {"tokens": tokens})
+    caches = _grow(model, caches, S + steps + 1)
+    tok = torch.argmax(logits, -1)
+    logits, caches = model.decode_step(params, tok, caches, S)
+    tok = torch.argmax(logits, -1)
+    per_step = []
+    for step in range(steps):
+        with moe_calls() as log:
+            logits, caches = model.decode_step(params, tok, caches,
+                                               S + 1 + step)
+        tok = torch.argmax(logits, -1)
+        per_step.append([int(gi.unique().numel()) for _, _, gi in log])
+    return per_step
+
+
+def phase_serve_moe(seed: int, model, params, setup: dict, dev) -> dict:
+    """The serve phase's stream through the governed, traced engine at
+    qwen2-moe-a2.7b's full width: a 192 MiB cache holds four 48 MiB blobs
+    of 512-token prefixes; the 2304-token prompt's 216 MiB blob is billed
+    and rejected. Every billing check of `serve`, then prefill and decode
+    timed beside their bounds."""
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    V = cfg.vocab_size
+    check(setup["params"] == MOE_PARAMS,
+          f"{setup['params']} parameters, not {MOE_PARAMS}")
+    pool, long_prompt, rounds = serve_requests(seed, V)
+    capacity = MOE_CACHE_BYTES
+    check(blob_bytes(cfg, SERVE_PROMPT) == 48 << 20
+          and blob_bytes(cfg, SERVE_LONG) > capacity,
+          f"blob {blob_bytes(cfg, SERVE_PROMPT)} bytes, not 48 MiB")
+    tracer, events = Tracer(), EventLog()
+    engine = ServeEngine(model, params, prefix_cache_bytes=capacity,
+                         policy="gdsf", govern=True,
+                         governor_window=SERVE_WINDOW, tracer=tracer,
+                         events=events)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    round_s, outputs = serve_rounds(engine, rounds, V)
+    rid = sum(len(rnd) for rnd in rounds)
+    launches = ops.launch_counts()
+    check(launches == NO_LAUNCHES, f"serve_moe launched kernels: {launches}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    bill = billing_checks(engine, tracer, events, cfg, pool + [long_prompt],
+                          capacity)
+    store, cache, audit = engine.store, engine.cache, bill["audit"]
+    again = [engine.serve([Request(rid + i, pool[0], SERVE_NEW)])[0].output
+             for i in range(2)]
+    check(np.array_equal(*again), f"one prompt, two outputs: {again}")
+
+    tokens = torch.as_tensor(np.stack(pool[:SERVE_PER_ROUND]).astype(np.int64),
+                             device=dev)
+    steps = 16
+    timing = time_prefill_decode(model, params, tokens, steps=steps)
+    experts = decode_experts(model, params, tokens, steps)
+    experts_read = statistics.mean(sum(step) for step in experts)
+    n_tok = tokens.numel()
+    ops_ = moe_prefill_ops(cfg, SERVE_PER_ROUND, SERVE_PROMPT)
+    prefill_ops_ms = (ops_["bf16"] / BF16_PEAK_FLOPS
+                      + ops_["f32"] / F32_PEAK_FLOPS) * 1e3
+    all_weights = moe_weight_bytes(cfg, cfg.num_layers * cfg.num_experts)
+    prefill_bytes_ms = (all_weights + 2 * n_tok * cfg.d_model * 2) \
+        / HBM_BYTES_PER_S * 1e3
+    kv_bytes = (2 * cfg.num_layers * 2 * SERVE_PER_ROUND * (SERVE_PROMPT + 2)
+                * cfg.num_kv_heads * cfg.hd)
+    decode_bytes = moe_weight_bytes(cfg, experts_read) + kv_bytes
+    # the reference's own data flow adds the float32 unembedding it makes
+    # on every call: written once and read once
+    cast_bytes = 2 * cfg.d_model * V * 4
+    emit("serve_moe", arch=MOE_ARCH, layers=cfg.num_layers,
+         d_model=cfg.d_model, heads=cfg.num_heads,
+         kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
+         experts=cfg.num_experts, top_k=cfg.top_k,
+         shared_experts=cfg.num_shared_experts, d_expert=cfg.d_expert,
+         vocab=V, params=setup["params"], param_bytes=setup["param_bytes"],
+         param_gib=setup["param_bytes"] / 2**30, init_s=setup["init_s"],
+         price=SERVE_PRICE, cache_bytes=capacity,
+         blob_bytes={"pool": blob_bytes(cfg, SERVE_PROMPT),
+                     "long": blob_bytes(cfg, SERVE_LONG)},
+         capacity_slots={S: moe.capacity(cfg, S)
+                         for S in (SERVE_PROMPT, SERVE_PROMPT + 1,
+                                   SERVE_LONG)},
+         rounds=SERVE_ROUNDS, requests=rid, round_s=round_s,
+         prefill_tokens_per_s=n_tok / timing["prefill_ms"] * 1e3,
+         prefill_ms=timing["prefill_ms"], prefill_tokens=n_tok,
+         prefill_bf16_flops=ops_["bf16"], prefill_f32_flops=ops_["f32"],
+         prefill_ops_bound_ms=prefill_ops_ms,
+         prefill_bytes_bound_ms=prefill_bytes_ms,
+         prefill_bound_ms=max(prefill_ops_ms, prefill_bytes_ms),
+         prefill_bound_by="operations (bf16 at 989 TFLOP/s, float32 at "
+                          "67 TFLOP/s)" if prefill_ops_ms >= prefill_bytes_ms
+         else "bytes (every weight read once, 3.35 TB/s)",
+         decode_ms_per_step=timing["decode_ms_per_step"],
+         decode_wall_ms_per_step=timing["decode_wall_ms_per_step"],
+         decode_batch=SERVE_PER_ROUND,
+         decode_distinct_experts_per_step=experts_read,
+         decode_distinct_experts_by_layer_first_step=experts[0],
+         decode_bytes=decode_bytes,
+         decode_bound_ms=decode_bytes / HBM_BYTES_PER_S * 1e3,
+         decode_bound_by="bytes (every weight the step needs, the distinct "
+                         "routed experts of this run, and the KV cache read "
+                         "once, 3.35 TB/s)",
+         decode_bytes_with_f32_unembed=decode_bytes + cast_bytes,
+         decode_ms_with_f32_unembed=(decode_bytes + cast_bytes)
+         / HBM_BYTES_PER_S * 1e3,
+         peak_device_gib=peak_gib, launches=launches,
+         gets=store.meter.gets, hits=cache.hits, misses=cache.misses,
+         dollars=cache.meter.dollars, events=bill["kinds"],
+         policy=cache.policy, swaps=len(engine.governor.swaps),
+         audit=audit.summary(), dollar_regret=audit.dollar_regret,
+         opt_dollars=[audit.opt_dollars_lower, audit.opt_dollars_upper],
+         host_replay_equal=True, span_dollars=bill["span_dollars"],
+         repeat_tokens_equal=True, seconds=time.perf_counter() - t_phase)
+    return dict(pool=pool, rounds=rounds, outputs=outputs, timing=timing,
+                capacity=capacity)
+
+
+def moe_routing_agreement(cpu_calls: list, card_calls: list, K: int) -> dict:
+    """Top-k experts of the two sides, call by call (the same layers in the
+    same order), compared on every token whose K-th gate (on the CPU) leads
+    its (K+1)-th by more than MOE_GATE_GAP."""
+    compared = equal = 0
+    for (x, p, gi), (_, _, gi_card) in zip(cpu_calls, card_calls, strict=True):
+        gates = torch.softmax(x.to(torch.float32) @ p["router"], dim=-1)
+        top = torch.sort(gates, dim=-1, descending=True).values
+        sure = (top[..., K - 1] - top[..., K]) > MOE_GATE_GAP
+        same = (gi.sort(-1).values == gi_card.cpu().sort(-1).values).all(-1)
+        compared += int(sure.sum())
+        equal += int(same[sure].sum())
+    return dict(compared=compared, equal=equal)
+
+
+def phase_serve_moe_numerics(seed: int, model, params, pool: list,
+                             dev) -> None:
+    """(a) At full width with capacity_factor = E/K, decode_step at position
+    512 for token x against the last-position logits of prefill(prompt +
+    [x]). (b) A two-layer cut of the same weights in float32 (full width,
+    batch 2, 128-token prompts, TF32 off): the card's prefill and 4 decode
+    steps against the CPU's, and their routing."""
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    rng = np.random.default_rng(seed + 2)
+    # drops are by design and only on prefill: with C >= S nothing drops,
+    # so decode and prefill compute the same function
+    no_drop = get_model(dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.top_k))
+    check(moe.capacity(no_drop.cfg, SERVE_PROMPT + 1) >= SERVE_PROMPT + 1,
+          "capacity_factor E/K leaves C < S")
+    prompt = torch.as_tensor(pool[1][None].astype(np.int64), device=dev)
+    x = int(rng.integers(0, cfg.vocab_size))
+    logits, caches = no_drop.prefill(params, {"tokens": prompt})
+    with moe_calls() as dec_calls:
+        decode, _ = no_drop.decode_step(
+            params, torch.tensor([x], device=dev),
+            _grow(no_drop, caches, SERVE_PROMPT + 1), SERVE_PROMPT)
+    longer = torch.cat([prompt, torch.tensor([[x]], device=dev)], 1)
+    with moe_calls() as pre_calls:
+        full, _ = no_drop.prefill(params, {"tokens": longer})
+    flips = sum(int(not torch.equal(a[2][0, -1].sort().values,
+                                    b[2][0, -1].sort().values))
+                for a, b in zip(dec_calls, pre_calls, strict=True))
+    del dec_calls, pre_calls, caches
+    gap_a = float((decode - full).abs().max())
+    rel_a = gap_a / float(full.abs().max())
+    check(rel_a <= MOE_DECODE_VS_PREFILL_REL,
+          f"decode against prefill: max gap {gap_a}, {rel_a} of the largest "
+          f"logit > {MOE_DECODE_VS_PREFILL_REL} ({flips} layers routed the "
+          f"last token otherwise)")
+    top2 = torch.topk(full, 2, -1).values[0]
+    margin_a = float(top2[0] - top2[1])
+    check(margin_a <= MOE_DECODE_VS_PREFILL_REL * float(full.abs().max())
+          or int(decode.argmax()) == int(full.argmax()),
+          "decode and prefill pick other tokens where the margin exceeds "
+          "the tolerance")
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cut = dataclasses.replace(cfg, num_layers=2,
+                                  param_dtype=torch.float32)
+        card_params = tree_map(lambda t: t.float(),
+                               dict(params, layers=params["layers"][:2]))
+        host_params = tree_map(lambda t: t.cpu(), card_params)
+        m = get_model(cut)
+        toks = rng.integers(0, cfg.vocab_size, (2, 128)).astype(np.int64)
+        outs, calls = {}, {}
+        for name, p, d in (("cpu", host_params, "cpu"),
+                           ("cuda", card_params, dev)):
+            with moe_calls() as log:
+                lg, cs = m.prefill(p, {"tokens": torch.as_tensor(toks,
+                                                                 device=d)})
+                cs = _grow(m, cs, 128 + 4)
+                seq = [lg.float().cpu()]
+                for step in range(4):
+                    # both sides take the CPU's greedy token
+                    nxt = torch.argmax(outs["cpu"][step] if name == "cuda"
+                                       else seq[-1], -1)
+                    lg, cs = m.decode_step(p, nxt.to(d), cs, 128 + step)
+                    seq.append(lg.float().cpu())
+            outs[name], calls[name] = seq, log
+        routing = moe_routing_agreement(calls["cpu"], calls["cuda"],
+                                        cfg.top_k)
+        del calls, card_params, host_params, cs
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    rel_b = [float((got - want).abs().max() / want.abs().max())
+             for got, want in zip(outs["cuda"], outs["cpu"])]
+    check(max(rel_b) <= MOE_CARD_VS_CPU_REL,
+          f"card against CPU: {max(rel_b)} of the largest logit > "
+          f"{MOE_CARD_VS_CPU_REL}")
+    check(routing["compared"] > 0 and routing["equal"] == routing["compared"],
+          f"the card routes otherwise than the CPU: {routing}")
+    emit("serve_moe_numerics",
+         decode_vs_prefill=dict(position=SERVE_PROMPT, token=x,
+                                capacity_factor=no_drop.cfg.capacity_factor,
+                                capacity=moe.capacity(no_drop.cfg,
+                                                      SERVE_PROMPT + 1),
+                                max_abs_gap=gap_a, rel_gap=rel_a,
+                                tolerance_rel=MOE_DECODE_VS_PREFILL_REL,
+                                top2_margin=margin_a,
+                                layers_routing_last_token_otherwise=flips,
+                                same_greedy_token=int(decode.argmax())
+                                == int(full.argmax())),
+         card_vs_cpu=dict(layers=2, dtype="float32", tf32=False, batch=2,
+                          prompt=128, decode_steps=4,
+                          rel_gap_per_step=rel_b,
+                          tolerance_rel=MOE_CARD_VS_CPU_REL,
+                          routing_gate_gap=MOE_GATE_GAP,
+                          routing_tokens_compared=routing["compared"],
+                          routing_tokens_equal=routing["equal"]),
+         seconds=time.perf_counter() - t_phase)
+
+
+def phase_serve_fleet(model, params, moe_out: dict) -> None:
+    """serve_moe's stream through a second engine in fleet mode (three
+    hash-partitioned hosts, 64 MiB of prefix cache each, govern=False). The
+    fleet's bill reconciles bit for bit with the per-host audits, the store
+    and a host-only Fleet fed the same key sequence; each host's GETs equal
+    its misses; the tokens are serve_moe's, since fleet mode changes the
+    bill and nothing else."""
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    engine = ServeEngine(model, params, prefix_cache_bytes=moe_out["capacity"],
+                         policy="gdsf", fleet_nodes=MOE_FLEET_NODES,
+                         governor_window=SERVE_WINDOW)
+    fleet, keys = engine.fleet, []
+    access = fleet.access
+
+    def recorded(key, event_time=None):
+        keys.append(key)
+        return access(key, event_time)
+    fleet.access = recorded         # the engine's key sequence, in order
+    ops.reset_launch_counts()
+    round_s, outputs = serve_rounds(engine, moe_out["rounds"], cfg.vocab_size)
+    launches = ops.launch_counts()
+    check(launches == NO_LAUNCHES, f"serve_fleet launched kernels: {launches}")
+    for rid, want in moe_out["outputs"].items():
+        check(np.array_equal(outputs[rid], want),
+              f"request {rid}: fleet mode generated other tokens")
+    audits = engine.audit()
+    observed = math.fsum(a.observed_dollars for a in audits.values()
+                         if a is not None)
+    dollars = fleet.dollars()
+    check(dollars == observed,
+          f"fleet dollars {dollars!r} != fsum of audits {observed!r}")
+    check(dollars == engine.store.meter.dollars,
+          f"fleet dollars {dollars!r} != store meter "
+          f"{engine.store.meter.dollars!r}")
+    for n in fleet.nodes:
+        check(n.cache.meter.gets == n.cache.misses,
+              f"{n.host}: {n.cache.meter.gets} GETs for {n.cache.misses} "
+              "misses")
+    check(sum(n.cache.misses for n in fleet.nodes) > 0 and
+          sum(n.cache.hits for n in fleet.nodes) > 0,
+          "the fleet saw no hit or no miss")
+    store = ObjectStore(SERVE_PRICE)
+    for key in engine.store.keys():
+        n = engine.store.size_of(key)
+        store.register_lazy(key, n, lambda n=n: bytes(n))
+    replay = Fleet(store=store, n_nodes=MOE_FLEET_NODES,
+                   capacity_bytes=moe_out["capacity"] / MOE_FLEET_NODES,
+                   policy="gdsf", window_span=4.0 * SERVE_WINDOW,
+                   max_skew=float(SERVE_WINDOW), gossip_every=SERVE_WINDOW,
+                   metrics=MetricsRegistry())
+    for key in keys:
+        replay.access(key)
+
+    def as_dicts(by_host):
+        return {h: None if a is None else dataclasses.asdict(a)
+                for h, a in by_host.items()}
+    check(replay.dollars() == dollars
+          and as_dicts(replay.audits()) == as_dicts(audits),
+          "a host-only fleet bills or audits otherwise than the engine")
+    emit("serve_fleet", arch=MOE_ARCH, nodes=MOE_FLEET_NODES,
+         cache_bytes_per_node=moe_out["capacity"] / MOE_FLEET_NODES,
+         requests=len(outputs), round_s=round_s, accesses=len(keys),
+         launches=launches, dollars=dollars,
+         store_dollars=engine.store.meter.dollars,
+         hosts={n.host: dict(hits=n.cache.hits, misses=n.cache.misses,
+                             gets=n.cache.meter.gets,
+                             dollars=n.cache.meter.dollars,
+                             policy=n.cache.policy) for n in fleet.nodes},
+         swaps=len(fleet.swaps), policy=fleet.policy,
+         tokens_equal_serve_moe=True, host_replay_equal=True,
+         seconds=time.perf_counter() - t_phase)
+
+
+def phase_moe_serving(seed: int, dev) -> None:
+    """The MoE slice: serve_moe, serve_moe_numerics, serve_moe_profile and
+    serve_fleet on one set of full-width qwen2-moe-a2.7b weights."""
+    model, params, setup = serve_setup(seed, dev, MOE_ARCH)
+    out = phase_serve_moe(seed, model, params, setup, dev)
+    phase_serve_moe_numerics(seed, model, params, out["pool"], dev)
+    phase_serve_profile(model, params, out["pool"], out["timing"], dev,
+                        phase="serve_moe_profile")
+    phase_serve_fleet(model, params, out)
     del model, params
     torch.cuda.empty_cache()
 
@@ -1320,6 +1786,7 @@ def main() -> int:
     full = phase_replay_full(args.seed)
     phase_replay_profile(full["trace"], full["execute_s"])
     phase_serving(args.seed, dev)
+    phase_moe_serving(args.seed, dev)
     # each kernel's launches on its own path, counted from 0 around it
     launches = {"evict_argmin": full["launches"]["evict_argmin"],
                 "next_use": full["launches"]["next_use"],

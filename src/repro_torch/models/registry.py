@@ -7,8 +7,8 @@ The port of `repro.models.registry`. Every family exposes:
   decode_step(params, token, caches, position)
   abstract_caches(batch_size, max_seq)  — the decode state's shapes
 
-Only the dense family is ported; the others raise (ROADMAP queue 1,
-item 7). Training (`loss_fn`) is item 8.
+The dense and moe families are ported; the others raise (ROADMAP queue
+1, item 7). Training (`loss_fn`) is item 8.
 """
 from __future__ import annotations
 
@@ -21,9 +21,8 @@ from ..core import resolve_device
 from . import transformer
 from .common import ArchConfig, init_params
 
-_FAMILY_MODULES = {"dense": transformer}
+_FAMILY_MODULES = {"dense": transformer, "moe": transformer}
 _NOT_PORTED = {
-    "moe": "the MoE family is ROADMAP queue 1, item 7",
     "vlm": "the vlm family (M-RoPE) is ROADMAP queue 1, item 7",
     "xlstm": "the xlstm family is ROADMAP queue 1, item 7",
     "hybrid": "the hybrid (rglru) family is ROADMAP queue 1, item 7",

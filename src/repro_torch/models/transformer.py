@@ -1,10 +1,11 @@
-"""Decoder-only transformer backbone on PyTorch: the dense family.
+"""Decoder-only transformer backbone on PyTorch: the dense and MoE families.
 
 The port of `repro.models.transformer` for chatglm3-6b, phi4-mini-3.8b,
-mistral-nemo-12b and gemma3-4b (5:1 local:global windows). Layers are
-per-layer parameter dicts applied in a Python loop, as in the reference;
-the stacked (scanned) layout, MoE layers and M-RoPE are not ported yet and
-raise (ROADMAP queue 1, item 7).
+mistral-nemo-12b, gemma3-4b (5:1 local:global windows), qwen2-moe-a2.7b and
+kimi-k2-1t-a32b (MoE layers from `moe.py`). Layers are per-layer parameter
+dicts applied in a Python loop, as in the reference. M-RoPE (the vlm
+family) raises (ROADMAP queue 1, item 7); the stacked (scanned) layout
+raises (item 10).
 
 Decode writes each new key and value into the preallocated cache in place
 (the reference's `dynamic_update_slice` builds a new array); a write past
@@ -17,12 +18,12 @@ import torch.nn.functional as F
 
 from .common import (ArchConfig, ParamDef, apply_rope, attention,
                      chunked_attention, ffn, rms_norm)
+from .moe import moe_ffn_apply, moe_ffn_defs
 
 # attention score materialization is capped; larger S*K uses the chunked
 # (online-softmax) path, as in the reference
 _FULL_ATTN_LIMIT = 2048 * 2048
 
-_MOE = "MoE layers are ROADMAP queue 1, item 7 (models/moe.py)"
 _MROPE = "M-RoPE (the vlm family) is ROADMAP queue 1, item 7"
 
 
@@ -51,14 +52,16 @@ def _ffn_defs(cfg: ArchConfig, d_ff: int) -> dict:
 
 
 def layer_defs(cfg: ArchConfig, layer: int) -> dict:
-    if cfg.is_moe_layer(layer):
-        raise NotImplementedError(_MOE)
-    return {
+    out = {
         "ln1": ParamDef((cfg.d_model,), ("embed",), init="ones"),
         "ln2": ParamDef((cfg.d_model,), ("embed",), init="ones"),
         "attn": _attn_defs(cfg),
-        "ffn": _ffn_defs(cfg, cfg.d_ff),
     }
+    if cfg.is_moe_layer(layer):
+        out["moe"] = moe_ffn_defs(cfg)
+    else:
+        out["ffn"] = _ffn_defs(cfg, cfg.d_ff)
+    return out
 
 
 def param_defs(cfg: ArchConfig) -> dict:
@@ -73,7 +76,7 @@ def param_defs(cfg: ArchConfig) -> dict:
 
 def stacked_param_defs(cfg: ArchConfig) -> dict:
     raise NotImplementedError("the stacked (scanned) layer layout is ROADMAP "
-                              "queue 1, item 7, with the MoE giants")
+                              "queue 1, item 10, with the dry-run")
 
 
 # ---------------------------------------------------------------------------
@@ -155,7 +158,7 @@ def _self_attn(cfg: ArchConfig, p, x, positions, *, layer: int, q_offset=0,
 
 def _ffn(cfg: ArchConfig, p, hin):
     if "moe" in p:
-        raise NotImplementedError(_MOE)
+        return moe_ffn_apply(cfg, p["moe"], hin)
     return ffn(hin, p["ffn"]["w1"], p["ffn"].get("w3"), p["ffn"]["w2"],
                cfg.act)
 

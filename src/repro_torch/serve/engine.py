@@ -10,8 +10,9 @@ The engine runs prefill and greedy decode eagerly on its device (the card
 unless the caller passes `device="cpu"`). Each stored prefix blob holds
 one row's K cache of every layer in the reference's layout and byte
 order, so the bill, which depends only on byte lengths and the access
-order, is the reference's. Fleet mode (`fleet_nodes > 0`) is not ported
-yet.
+order, is the reference's. Fleet mode (`fleet_nodes > 0`) partitions the
+prefix cache across hash-sharded hosts (`repro_torch.fleet`), as the
+reference does.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.core import resolve_device
 from repro_torch.egress.cache import EgressCache
 from repro_torch.egress.store import ObjectStore
+from repro_torch.fleet import Fleet
 from repro_torch.models.convert import tensor_bytes
 from repro_torch.models.registry import ModelApi
 from repro_torch.online import DollarGovernor, MetricsRegistry, WindowedAuditor
@@ -55,9 +57,6 @@ class ServeEngine:
                  metrics: Optional[MetricsRegistry] = None,
                  tracer=None, events=None, fleet_nodes: int = 0,
                  device=None):
-        if fleet_nodes:
-            raise NotImplementedError("fleet mode needs repro.fleet, which "
-                                      "is not ported yet")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"parameters lie on {params['embed'].device}, "
@@ -73,10 +72,27 @@ class ServeEngine:
         self.events = events
         if tracer is not None:
             self.store.set_tracer(tracer)
-        self.cache = EgressCache(self.store, prefix_cache_bytes, policy,
-                                 consumer="serve_prefix_cache",
-                                 metrics=self.metrics, tracer=tracer,
-                                 events=events)
+        # fleet mode: partition the prefix cache across `fleet_nodes`
+        # hash-sharded hosts, each with its own billing meter and shadow
+        # panel, governed by quorum swaps over gossip; the single-host cache
+        # and governor are replaced wholesale
+        assert not (govern and fleet_nodes), \
+            "govern= and fleet_nodes= are mutually exclusive governors"
+        self.fleet: Optional[Fleet] = None
+        self.cache: Optional[EgressCache] = None
+        if fleet_nodes:
+            self.fleet = Fleet(
+                store=self.store, n_nodes=fleet_nodes,
+                capacity_bytes=prefix_cache_bytes / fleet_nodes,
+                policy=policy, window_span=4.0 * governor_window,
+                max_skew=float(governor_window),
+                gossip_every=governor_window,
+                events=events, metrics=self.metrics)
+        else:
+            self.cache = EgressCache(self.store, prefix_cache_bytes, policy,
+                                     consumer="serve_prefix_cache",
+                                     metrics=self.metrics, tracer=tracer,
+                                     events=events)
         self.governor: Optional[DollarGovernor] = None
         if govern:
             auditor = WindowedAuditor(prefix_cache_bytes,
@@ -125,7 +141,10 @@ class ServeEngine:
                 key = _prefix_key(r.prompt)
                 if self.store.contains(key):
                     with self._span("serve.request", rid=r.rid):
-                        self.cache.get(key)
+                        if self.fleet is not None:
+                            self.fleet.access(key)
+                        else:
+                            self.cache.get(key)
             with self._span("serve.prefill", batch=len(group)):
                 logits, caches = self._prefill_batch(prompts)
             S = prompts.shape[1]
@@ -144,7 +163,10 @@ class ServeEngine:
                 r.output = gen[i][:r.max_new_tokens]
 
     def audit(self):
-        """Exact offline audit of the prefix cache's bill."""
+        """Exact offline audit: per-host dict in fleet mode (each host's
+        own partition trace), single audit otherwise."""
+        if self.fleet is not None:
+            return self.fleet.audits()
         return self.cache.audit()
 
     def governance_snapshot(self) -> dict:
@@ -154,6 +176,8 @@ class ServeEngine:
                     consumers=self.store.consumer_snapshot())
         if self.governor is not None:
             snap["governor"] = self.governor.snapshot()
+        if self.fleet is not None:
+            snap["fleet"] = self.fleet.snapshot()
         if self.events is not None:
             snap["events"] = self.events.snapshot()
         if self.tracer:
@@ -163,9 +187,11 @@ class ServeEngine:
 
 def _grow(model: ModelApi, caches, max_len: int):
     """Pad every cache, windowed ones too, to `max_len` keys on the right:
-    the reference's dense branch, reproduced as it is."""
-    if model.cfg.family != "dense":
-        raise NotImplementedError(f"{model.cfg.family} caches are not ported")
+    the reference's dense branch (which moe caches take too), reproduced as
+    it is."""
+    if model.cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"{model.cfg.family} caches are ROADMAP "
+                                  "queue 1, item 7")
     out = []
     for (k, v) in caches:
         pad = max_len - k.shape[1]

@@ -22,7 +22,8 @@ def test_import_loads_no_jax_and_no_repro():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels\n"
             "import repro_torch.models, repro_torch.configs, "
             "repro_torch.egress, repro_torch.obs, repro_torch.online, "
-            "repro_torch.serve\n"
+            "repro_torch.online.scenario, repro_torch.fleet, "
+            "repro_torch.models.moe, repro_torch.serve\n"
             "bad = sorted(m for m in sys.modules if m.startswith('jax') or "
             "m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\n"

@@ -483,3 +483,25 @@ def test_serve_engine_on_card_matches_cpu(cuda, arch, capacity):
         got[dev] = [x.float().cpu().numpy() for x in (prefill, decode)]
     for on_card, on_host in zip(got["cuda"], got["cpu"]):
         np.testing.assert_allclose(on_card, on_host, rtol=2e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("S", [1, 512, 2304])
+def test_moe_layer_full_width_same_bits_twice(cuda, S):
+    """One qwen2-moe-a2.7b MoE layer at full width (60 experts of 2048 x
+    1408, top-4, 4 shared) on the card: two calls on the same input give
+    the same bits, on the decode gather (S = 1) and on the dispatch (C = 42
+    and 192 slots an expert), where the combine adds each token's
+    contributions in a fixed order with no atomics."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params
+    cfg = get_config("qwen2-moe-a2.7b")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = init_params(moe.moe_ffn_defs(cfg), gen, cfg.param_dtype)
+    B = 4 if S < 2304 else 1
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=cuda) \
+        .to(cfg.param_dtype)
+    a = moe.moe_ffn_apply(cfg, p, x)
+    b = moe.moe_ffn_apply(cfg, p, x.clone())
+    torch.cuda.synchronize()
+    assert a.shape == x.shape and bool(torch.isfinite(a.float()).all())
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))

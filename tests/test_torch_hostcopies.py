@@ -1,4 +1,4 @@
-"""The port's copies of the host layers (obs, egress, online, configs)
+"""The port's copies of the host layers (obs, egress, online, fleet, configs)
 against their originals: the source is the same program once the
 `repro.` imports read `repro_torch.` (compared by AST), and the same
 access stream through either package bills, hits and audits alike."""
@@ -23,7 +23,8 @@ COPIES = [f"{pkg}/{name}.py" for pkg, names in [
     ("obs", ["__init__", "metrics", "trace", "events", "schema"]),
     ("egress", ["__init__", "store", "cache"]),
     ("online", ["__init__", "metrics", "shadow", "window", "admission",
-                "governor"]),
+                "governor", "scenario"]),
+    ("fleet", ["__init__", "wire", "gossip", "node", "coordinator"]),
     ("configs", ["chatglm3_6b", "gemma3_4b", "kimi_k2_1t_a32b",
                  "mistral_nemo_12b", "phi4_mini_3_8b", "qwen2_moe_a2_7b",
                  "qwen2_vl_72b", "recurrentgemma_9b", "whisper_large_v3",

@@ -179,12 +179,44 @@ def test_init_without_a_device_needs_a_card(monkeypatch):
         get_model(get_config("phi4-mini-3.8b", smoke=True)).init(0)
 
 
-@pytest.mark.parametrize("family_arch", ["qwen2-moe-a2.7b", "qwen2-vl-72b",
+@pytest.mark.parametrize("family_arch", ["qwen2-vl-72b",
                                          "xlstm-125m", "recurrentgemma-9b",
                                          "whisper-large-v3"])
 def test_other_families_raise(family_arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(get_config(family_arch, smoke=True))
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "qwen2-moe-a2.7b"])
+def test_decode_step_writes_the_callers_cache_in_place(arch):
+    """The port's decode_step writes each new key and value into the
+    full-timeline cache it is given and hands back the same tensors; the
+    reference returns new arrays and leaves its input unchanged. A caller
+    that needs the old cache must clone it first. The logits are the
+    reference's all the same."""
+    rm, rp, tm, tp = _models(arch, "float32")
+    S = 8
+    toks = np.random.default_rng(8).integers(
+        0, rm.cfg.vocab_size, (2, S)).astype(np.int32)
+    rl, rcache = rm.prefill(rp, {"tokens": jnp.asarray(toks)})
+    _, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(
+        toks.astype(np.int64))})
+    rcache, tcache = ref_grow(rm, rcache, S + 2), _grow(tm, tcache, S + 2)
+    ref_before = [np.asarray(k) for k, _ in rcache]
+    before = [(k.clone(), v.clone()) for k, v in tcache]
+    rtok = jnp.argmax(rl, -1).astype(jnp.int32)
+    want, _ = rm.decode_step(rp, rtok, rcache, jnp.int32(S))
+    got, returned = tm.decode_step(
+        tp, torch.from_numpy(np.asarray(rtok).astype(np.int64)), tcache, S)
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL["float32"])
+    for (k, v), (nk, nv), (bk, bv) in zip(tcache, returned, before):
+        assert nk is k and nv is v                  # the same objects
+        for new, old in ((k, bk), (v, bv)):
+            assert torch.equal(new[:, :S], old[:, :S])
+            assert not torch.equal(new[:, S], old[:, S])   # row S written
+            assert torch.equal(new[:, S + 1:], old[:, S + 1:])
+    for (k, _), old in zip(rcache, ref_before):     # the reference's: as was
+        np.testing.assert_array_equal(np.asarray(k), old)
 
 
 def test_cache_write_past_the_end_raises():

@@ -35,7 +35,7 @@ def _engine(**kw):
 
 
 # ---------------------------------------------------------------------------
-# tests/test_serve.py, mirrored (its fleet test waits for the fleet port)
+# tests/test_serve.py, mirrored (its fleet test is in test_torch_fleet.py)
 
 
 def test_serve_batch_produces_tokens():
@@ -183,8 +183,8 @@ def test_engine_refuses_fleet_mode_and_misplaced_params():
     cfg = get_config("phi4-mini-3.8b", smoke=True)
     model = get_model(cfg)
     params = model.init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="fleet"):
-        ServeEngine(model, params, fleet_nodes=3, device="cpu")
+    with pytest.raises(AssertionError, match="mutually exclusive"):
+        ServeEngine(model, params, fleet_nodes=3, govern=True, device="cpu")
     with pytest.raises(ValueError, match="parameters lie on"):
         ServeEngine(model, params, device="meta")
 
