@@ -26,6 +26,15 @@ toolkit. Its phases, in order, each printing one JSON line:
   the same for qwen2-moe-a2.7b at full width (the MoE family), then the
   same stream through the engine's fleet mode, its bill reconciled across
   hosts, store and a host-only fleet, its tokens those of `serve_moe`.
+* `serve_hybrid`, `serve_xlstm`: the serve stream through the engine at
+  recurrentgemma-9b's and xlstm-125m's full size, every billing check of
+  `serve`, the bill equal to the host rehearsal (`rehearse`); prefill and
+  decode timed and profiled beside their bounds.
+* `model_vlm`, `model_whisper`: qwen2-vl-72b (20 of its 80 layers) and
+  whisper-large-v3 through `ModelApi` (the engine, like the reference's,
+  prefills tokens alone): prefill, decode, timing and profile.
+* `families_numerics`: for those four, decode against prefill at full
+  width, and a depth cut in float32 on the card against the CPU.
 * the kernel line: every kernel with its time beside its bound.
 
 It then prints the `nvidia-smi` name and power limit and last
@@ -61,7 +70,7 @@ from repro_torch.core.trace import next_use_indices  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.egress import EgressCache, ObjectStore  # noqa: E402
 from repro_torch.fleet import Fleet  # noqa: E402
-from repro_torch.models import get_model, moe, transformer  # noqa: E402
+from repro_torch.models import get_model, moe, transformer, xlstm  # noqa: E402
 from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.obs import EventLog, Tracer  # noqa: E402
 from repro_torch.online import (DollarGovernor, MetricsRegistry,  # noqa: E402
@@ -970,14 +979,32 @@ CARD_VS_CPU_REL = 2.0 ** -6
 
 
 def blob_bytes(cfg, S: int) -> int:
-    """A prefix blob: one row's K cache of every layer, L*S*G*hd bf16."""
-    return cfg.num_layers * S * cfg.num_kv_heads * cfg.hd * 2
+    """A prefix blob as the reference stores it: row b of every layer's
+    first prefill cache tensor (`kv[0][b]`), reckoned from the config: an
+    S-key K cache (L*S*G*hd in the parameter dtype) in the transformer
+    families; a window-capped K cache in RecurrentGemma's attention layers
+    and a float32 h in its RG-LRU layers; an mLSTM C (H*hd*hd) or a float32
+    sLSTM c in xLSTM's."""
+    item = torch.empty((), dtype=cfg.param_dtype).element_size()
+    G, hd, d, H = cfg.num_kv_heads, cfg.hd, cfg.d_model, cfg.num_heads
+    layers = range(cfg.num_layers)
+    if cfg.family == "hybrid":
+        return sum((cfg.window or S) * G * hd * item if cfg.is_attn_layer(l)
+                   else d * 4 for l in layers)
+    if cfg.family == "xlstm":
+        return sum(H * (d // H) ** 2 * item if l % 2 == 0 else d * 4
+                   for l in layers)
+    check(not cfg.window, "a windowed transformer's blob is not reckoned")
+    return cfg.num_layers * S * G * hd * item
 
 
-def serve_setup(seed: int, dev, arch: str = SERVE_ARCH) -> tuple:
-    """An architecture at full width (phi4-mini-3.8b unless named), its
-    weights drawn on the card."""
+def serve_setup(seed: int, dev, arch: str = SERVE_ARCH,
+                layers: int | None = None) -> tuple:
+    """An architecture at full width (phi4-mini-3.8b unless named; its
+    depth cut to `layers` where given), its weights drawn on the card."""
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = get_model(cfg)
     t0 = time.perf_counter()
     params = model.init(seed, device=dev)
@@ -996,6 +1023,21 @@ def matmul_params(cfg) -> int:
                              + 3 * d * cfg.d_ff)
 
 
+def dense_bounds(cfg, B: int, S: int) -> tuple:
+    """A dense transformer's prefill operations for B rows of S tokens (the
+    matrix products, causal attention: QK^T and PV over the keys at or
+    before each query, half the S^2 square, and the last position's
+    unembedding) and its decode step's bytes at position S (every weight
+    and the KV cache of S + 2 keys read once)."""
+    d, L, V = cfg.d_model, cfg.num_layers, cfg.vocab_size
+    flops = (2 * matmul_params(cfg) * B * S
+             + 2 * L * cfg.num_heads * cfg.hd * B * S * (S + 1)
+             + 2 * d * V * B)
+    decode_bytes = (2 * matmul_params(cfg) + 2 * d * V
+                    + 2 * L * 2 * B * (S + 2) * cfg.num_kv_heads * cfg.hd)
+    return flops, decode_bytes
+
+
 def host_replay(keys: list, sizes: dict, capacity: float) -> tuple:
     """The engine's key sequence through a fresh cache wired as the
     engine wires it (GDSF, the governor and its auditor), on a store of
@@ -1005,7 +1047,7 @@ def host_replay(keys: list, sizes: dict, capacity: float) -> tuple:
         store.register_lazy(key, n, lambda n=n: bytes(n))
     metrics = MetricsRegistry()
     cache = EgressCache(store, capacity, "gdsf", consumer="serve_prefix_cache",
-                        metrics=metrics)
+                        metrics=metrics, events=EventLog())
     DollarGovernor(cache, window=SERVE_WINDOW, hysteresis=0.05,
                    auditor=WindowedAuditor(capacity, window=4 * SERVE_WINDOW,
                                            metrics=metrics),
@@ -1015,18 +1057,17 @@ def host_replay(keys: list, sizes: dict, capacity: float) -> tuple:
     return store, cache
 
 
-def time_prefill_decode(model, params, tokens: torch.Tensor,
-                        steps: int) -> dict:
-    """CUDA-event times of one prefill of `tokens` (median of 3) and of
+def time_prefill_decode(model, params, batch: dict, steps: int) -> dict:
+    """CUDA-event times of one prefill of `batch` (median of 3) and of
     `steps` greedy decode steps after it (ms a step), with the host's wall
     time of the same decode loop (enqueue to the final synchronize)."""
-    B, S = tokens.shape
+    B, S = batch["tokens"].shape
     prefill_ms = []
     for _ in range(4):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        logits, caches = model.prefill(params, {"tokens": tokens})
+        logits, caches = model.prefill(params, batch)
         end.record()
         torch.cuda.synchronize()
         prefill_ms.append(start.elapsed_time(end))
@@ -1072,6 +1113,38 @@ def serve_requests(seed: int, V: int) -> tuple:
     return pool, long_prompt, rounds
 
 
+def engine_touches(rounds: list) -> list:
+    """The keys the engine touches, in order, when it serves `rounds` (one
+    `serve` call a round): within a call, groups of equal length in order
+    of length; a request's key is touched when its prefix blob is already
+    in the store, and a group's blobs are stored after its touches. The
+    rehearsal behind a predicted bill, held against the engine's trace."""
+    stored, keys = set(), []
+    for rnd in rounds:
+        by_len: dict[int, list] = {}
+        for _, p, _ in rnd:
+            by_len.setdefault(len(p), []).append(_prefix_key(p))
+        for _, group in sorted(by_len.items()):
+            keys += [k for k in group if k in stored]
+            stored.update(group)
+    return keys
+
+
+def rehearse(cfg, seed: int, capacity: float) -> dict:
+    """The serve stream's bill for a model of config `cfg`, from the host
+    alone: `engine_touches` through `host_replay` on blobs of
+    `blob_bytes`."""
+    pool, long_prompt, rounds = serve_requests(seed, cfg.vocab_size)
+    sizes = {_prefix_key(p): blob_bytes(cfg, len(p))
+             for p in pool + [long_prompt]}
+    keys = engine_touches(rounds)
+    store, cache = host_replay(keys, sizes, capacity)
+    return dict(keys=keys, touches=len(keys), gets=store.meter.gets,
+                hits=cache.hits, misses=cache.misses,
+                dollars=store.meter.dollars, events=event_kinds(cache.events),
+                audit=cache.audit())
+
+
 def serve_rounds(engine, rounds: list, V: int) -> tuple:
     """Serve each round as one call, synchronised at its end; every output
     checked for its length and range. Returns the rounds' seconds and the
@@ -1091,18 +1164,29 @@ def serve_rounds(engine, rounds: list, V: int) -> tuple:
     return round_s, outputs
 
 
-def billing_checks(engine, tracer, events, cfg, prompts: list,
+EVENT_KINDS = ("hit", "miss", "admit", "reject", "evict", "policy_swap")
+
+
+def event_kinds(events) -> dict:
+    return {k: len(events.events(k)) for k in EVENT_KINDS}
+
+
+def billing_checks(engine, tracer, events, cfg, rounds: list,
                    capacity: float) -> dict:
-    """The governed engine's bill, held bit for bit: every blob
-    L*S*G*hd*2 bytes, GETs = misses, span dollars = meter (rel 1e-12), miss
-    events = meter, an evict and a reject, and a host-only replay of the
-    engine's key sequence billing and auditing alike."""
+    """The governed engine's bill after `rounds`, held bit for bit: every
+    blob of the reference's length (`blob_bytes`), the keys touched those
+    of `engine_touches` (the rehearsal), GETs = misses, span dollars =
+    meter (rel 1e-12), miss events = meter, an evict (and a reject where a
+    blob exceeds the cache), and a host-only replay of the engine's key
+    sequence billing, auditing and logging the same events alike."""
     store, cache, meter = engine.store, engine.cache, engine.cache.meter
-    length = {_prefix_key(p): len(p) for p in prompts}
+    length = {_prefix_key(p): len(p) for rnd in rounds for _, p, _ in rnd}
     sizes = {k: store.size_of(k) for k in store.keys()}
     for key, n in sizes.items():
         check(n == blob_bytes(cfg, length[key]),
-              f"blob {key} is {n} bytes, not L*S*G*hd*2")
+              f"blob {key} is {n} bytes, not {blob_bytes(cfg, length[key])}")
+    check(cache._trace_keys == engine_touches(rounds),
+          "the engine touched other keys than the rehearsal's")
     check(store.meter.gets == cache.misses > 0,
           f"{store.meter.gets} GETs for {cache.misses} misses")
     span_dollars = tracer.dollars(name="store.get", consumer=cache.consumer)
@@ -1110,15 +1194,16 @@ def billing_checks(engine, tracer, events, cfg, prompts: list,
           f"span dollars {span_dollars} != meter {meter.dollars}")
     check(events.dollars_billed("miss") == meter.dollars,
           "miss events do not bill the meter's dollars bit for bit")
-    kinds = {k: len(events.events(k)) for k in
-             ("hit", "miss", "admit", "reject", "evict", "policy_swap")}
-    check(kinds["evict"] >= 1 and kinds["reject"] >= 1,
-          f"expected an evict and a reject event: {kinds}")
+    kinds = event_kinds(events)
+    oversize = max(sizes.values()) > capacity
+    check(kinds["evict"] >= 1 and (kinds["reject"] >= 1 or not oversize),
+          f"expected an evict (and a reject of an oversize blob): {kinds}")
     audit = engine.audit()
     r_store, r_cache = host_replay(list(cache._trace_keys), sizes, capacity)
     check(r_store.meter.dollars == store.meter.dollars
           and r_store.meter.gets == store.meter.gets
-          and (r_cache.hits, r_cache.misses) == (cache.hits, cache.misses),
+          and (r_cache.hits, r_cache.misses) == (cache.hits, cache.misses)
+          and event_kinds(r_cache.events) == kinds,
           "the host-only replay bills otherwise than the engine")
     check(dataclasses.asdict(r_cache.audit()) == dataclasses.asdict(audit),
           "the host-only replay audits otherwise than the engine")
@@ -1137,7 +1222,7 @@ def phase_serve(seed: int, model, params, setup: dict, dev) -> dict:
     t_phase = time.perf_counter()
     cfg = model.cfg
     V = cfg.vocab_size
-    pool, long_prompt, rounds = serve_requests(seed, V)
+    pool, _, rounds = serve_requests(seed, V)
     capacity = 4 * blob_bytes(cfg, SERVE_PROMPT)
     check(capacity == 1 << 27 and blob_bytes(cfg, SERVE_LONG) > capacity,
           f"cache {capacity} bytes: the pool's blobs are not 32 MiB")
@@ -1153,8 +1238,7 @@ def phase_serve(seed: int, model, params, setup: dict, dev) -> dict:
     launches = ops.launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     store, cache, meter = engine.store, engine.cache, engine.cache.meter
-    bill = billing_checks(engine, tracer, events, cfg, pool + [long_prompt],
-                          capacity)
+    bill = billing_checks(engine, tracer, events, cfg, rounds, capacity)
     kinds, audit, span_dollars = bill["kinds"], bill["audit"], \
         bill["span_dollars"]
 
@@ -1164,18 +1248,10 @@ def phase_serve(seed: int, model, params, setup: dict, dev) -> dict:
 
     tokens = torch.as_tensor(np.stack(pool[:SERVE_PER_ROUND]).astype(np.int64),
                              device=dev)
-    timing = time_prefill_decode(model, params, tokens, steps=16)
+    timing = time_prefill_decode(model, params, {"tokens": tokens},
+                                 steps=16)
     n_tok = tokens.numel()
-    # the matrix products, causal attention (QK^T and PV over the keys at
-    # or before each query: half the S^2 square) and the last position's
-    # unembedding
-    flops = (2 * matmul_params(cfg) * n_tok
-             + 2 * cfg.num_layers * cfg.num_heads * cfg.hd
-             * SERVE_PER_ROUND * SERVE_PROMPT * (SERVE_PROMPT + 1)
-             + 2 * cfg.d_model * V * SERVE_PER_ROUND)
-    decode_bytes = (2 * matmul_params(cfg) + 2 * cfg.d_model * V
-                    + 2 * cfg.num_layers * 2 * SERVE_PER_ROUND
-                    * (SERVE_PROMPT + 2) * cfg.num_kv_heads * cfg.hd)
+    flops, decode_bytes = dense_bounds(cfg, SERVE_PER_ROUND, SERVE_PROMPT)
     emit("serve", arch=SERVE_ARCH, layers=cfg.num_layers,
          d_model=cfg.d_model, vocab=V, params=setup["params"],
          param_gib=setup["param_bytes"] / 2**30, init_s=setup["init_s"],
@@ -1279,27 +1355,25 @@ def phase_serve_numerics(seed: int, model, params, pool: list, dev) -> None:
          seconds=time.perf_counter() - t_phase)
 
 
-def phase_serve_profile(model, params, pool: list, timing: dict, dev,
-                        steps: int = 4, phase: str = "serve_profile") -> None:
-    """Where a decode step's time goes at full width: a torch.profiler
-    window over `steps` decode steps (batch 4 at position 512), recorded
-    after a warm-up round of as many (the profiler loses a trace's first
-    events; see `device_time`), its device time set against the
-    unprofiled step time of `serve`. For an MoE model it also gives the
-    device time of `aten::index`: the expert-weight gathers (`w1[gi]`,
-    `w3[gi]`, `w2[gi]` in every layer) and the step's embedding lookup."""
+def decode_profile(model, params, batch: dict, steps: int = 4) -> dict:
+    """Where a decode step's time goes: a torch.profiler window over
+    `steps` greedy decode steps after a prefill of `batch` (position S, its
+    length), recorded after a warm-up round of as many (the profiler loses
+    a trace's first events; see `device_time`): device time and events a
+    step, host `cudaLaunchKernel` calls a step, the top device and host
+    ops. For an MoE model also the device time of `aten::index`: the
+    expert-weight gathers (`w1[gi]`, `w3[gi]`, `w2[gi]` in every layer)
+    and the step's embedding lookup."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
-    t_phase = time.perf_counter()
-    tokens = torch.as_tensor(np.stack(pool[:SERVE_PER_ROUND]).astype(np.int64),
-                             device=dev)
-    logits, caches = model.prefill(params, {"tokens": tokens})
-    caches = _grow(model, caches, SERVE_PROMPT + 2 * steps + 1)
+    B, S = batch["tokens"].shape
+    logits, caches = model.prefill(params, batch)
+    caches = _grow(model, caches, S + 2 * steps + 1)
     tok = torch.argmax(logits, -1)
-    logits, caches = model.decode_step(params, tok, caches, SERVE_PROMPT)
+    logits, caches = model.decode_step(params, tok, caches, S)
     tok = torch.argmax(logits, -1)
     torch.cuda.synchronize()
-    traces, position = [], SERVE_PROMPT + 1
+    traces, position = [], S + 1
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                  on_trace_ready=lambda p: traces.append(
@@ -1314,40 +1388,52 @@ def phase_serve_profile(model, params, pool: list, timing: dict, dev,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             prof.step()
-    check(bool(traces), "serve_profile: the profiler recorded no trace")
+    check(bool(traces), "decode_profile: the profiler recorded no trace")
     events = [e for e in traces[-1] if not e.key.startswith("ProfilerStep")]
     on_card = [e for e in events if e.device_type == DeviceType.CUDA]
     on_host = [e for e in events if e.device_type == DeviceType.CPU]
     device_ms = sum(e.self_device_time_total for e in on_card) / 1e3 / steps
-    step_ms = timing["decode_ms_per_step"]
 
     def top(evs, key, n):
         evs = sorted(evs, key=key, reverse=True)[:n]
         return [[e.key, e.count / steps, key(e) / steps] for e in evs]
 
-    extra = {}
+    launch = [e for e in on_host if e.key == "cudaLaunchKernel"]
+    out = dict(steps=steps, batch=B, position=S,
+               profiled_wall_ms_per_step=wall / steps * 1e3,
+               device_ms_per_step=device_ms if on_card else "not measured",
+               device_events_per_step=sum(e.count for e in on_card) / steps,
+               cuda_launch_kernel_calls_per_step=sum(
+                   e.count for e in launch) / steps,
+               top_device_us_per_step=top(
+                   on_card, lambda e: e.self_device_time_total, 10),
+               top_host_us_per_step=top(
+                   on_host, lambda e: e.self_cpu_time_total, 10))
     if model.cfg.family == "moe":
         index = [e for e in on_host if e.key == "aten::index"]
         index_ms = sum(e.device_time_total for e in index) / 1e3 / steps
-        launch = [e for e in on_host if e.key == "cudaLaunchKernel"]
-        extra = dict(cuda_launch_kernel_calls_per_step=sum(
-                         e.count for e in launch) / steps,
-                     index_calls_per_step=sum(e.count for e in index) / steps,
-                     index_device_ms_per_step=index_ms,
-                     index_share_of_device=index_ms / device_ms
-                     if device_ms else "not measured")
-    emit(phase, steps=steps, batch=SERVE_PER_ROUND,
-         position=SERVE_PROMPT,
-         profiled_wall_ms_per_step=wall / steps * 1e3,
-         unprofiled_ms_per_step=step_ms,
+        out.update(index_calls_per_step=sum(e.count for e in index) / steps,
+                   index_device_ms_per_step=index_ms,
+                   index_share_of_device=index_ms / device_ms
+                   if device_ms else "not measured")
+    return out
+
+
+def phase_serve_profile(model, params, pool: list, timing: dict, dev,
+                        steps: int = 4, phase: str = "serve_profile") -> None:
+    """`decode_profile` at full width (batch 4 at position 512), its device
+    time set against the unprofiled step time of `serve`."""
+    t_phase = time.perf_counter()
+    tokens = torch.as_tensor(np.stack(pool[:SERVE_PER_ROUND]).astype(np.int64),
+                             device=dev)
+    prof = decode_profile(model, params, {"tokens": tokens}, steps)
+    step_ms = timing["decode_ms_per_step"]
+    device_ms = prof["device_ms_per_step"]
+    emit(phase, **prof, unprofiled_ms_per_step=step_ms,
          host_wall_ms_per_step=timing["decode_wall_ms_per_step"],
-         device_ms_per_step=device_ms if on_card else "not measured",
-         device_busy_share=device_ms / step_ms if on_card else "not measured",
-         device_events_per_step=sum(e.count for e in on_card) / steps,
-         top_device_us_per_step=top(on_card, lambda e: e.self_device_time_total,
-                                    10),
-         top_host_us_per_step=top(on_host, lambda e: e.self_cpu_time_total, 10),
-         **extra, seconds=time.perf_counter() - t_phase)
+         device_busy_share=device_ms / step_ms
+         if device_ms != "not measured" else "not measured",
+         seconds=time.perf_counter() - t_phase)
 
 
 def phase_serving(seed: int, dev) -> None:
@@ -1467,7 +1553,7 @@ def phase_serve_moe(seed: int, model, params, setup: dict, dev) -> dict:
     V = cfg.vocab_size
     check(setup["params"] == MOE_PARAMS,
           f"{setup['params']} parameters, not {MOE_PARAMS}")
-    pool, long_prompt, rounds = serve_requests(seed, V)
+    pool, _, rounds = serve_requests(seed, V)
     capacity = MOE_CACHE_BYTES
     check(blob_bytes(cfg, SERVE_PROMPT) == 48 << 20
           and blob_bytes(cfg, SERVE_LONG) > capacity,
@@ -1484,8 +1570,7 @@ def phase_serve_moe(seed: int, model, params, setup: dict, dev) -> dict:
     launches = ops.launch_counts()
     check(launches == NO_LAUNCHES, f"serve_moe launched kernels: {launches}")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    bill = billing_checks(engine, tracer, events, cfg, pool + [long_prompt],
-                          capacity)
+    bill = billing_checks(engine, tracer, events, cfg, rounds, capacity)
     store, cache, audit = engine.store, engine.cache, bill["audit"]
     again = [engine.serve([Request(rid + i, pool[0], SERVE_NEW)])[0].output
              for i in range(2)]
@@ -1494,7 +1579,8 @@ def phase_serve_moe(seed: int, model, params, setup: dict, dev) -> dict:
     tokens = torch.as_tensor(np.stack(pool[:SERVE_PER_ROUND]).astype(np.int64),
                              device=dev)
     steps = 16
-    timing = time_prefill_decode(model, params, tokens, steps=steps)
+    timing = time_prefill_decode(model, params, {"tokens": tokens},
+                                 steps=steps)
     experts = decode_experts(model, params, tokens, steps)
     experts_read = statistics.mean(sum(step) for step in experts)
     n_tok = tokens.numel()
@@ -1761,6 +1847,385 @@ def phase_moe_serving(seed: int, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the other families: RecurrentGemma and xLSTM through the billed engine,
+# qwen2-vl and whisper through ModelApi (the engine prefills tokens alone,
+# as the reference's does), and the four families' numerics
+
+HYBRID_ARCH, XLSTM_ARCH = "recurrentgemma-9b", "xlstm-125m"
+VLM_ARCH, WHISPER_ARCH = "qwen2-vl-72b", "whisper-large-v3"
+# qwen2-vl-72b's 80 layers are 72.7 B parameters, 145 GB in bf16: one 80 GB
+# card holds 20 (sharding is ROADMAP queue 1, item 9)
+VLM_LAYERS = 20
+WHISPER_TOKENS = 448        # Whisper's decoder length
+MODEL_DECODE_STEPS = 8
+# families_numerics tolerances, on max|gap| / max|reference logit|, fixed
+# before the first chip run:
+# (a) decode against prefill at full width, bf16 on the card, as
+#     serve_numerics (a): 2^-4. xLSTM decodes token by token from
+#     init_state over the prompt against forward's last logits (the
+#     chunkwise form), its bf16 states rounded every step: the reference's
+#     own gap for the same check (xlstm-125m at full width, bf16, JAX on
+#     the CPU, tools/xlstm_reference_gap.py) is 0.00446 of the largest
+#     logit, so max(2^-4, twice that) = 2^-4. vlm's gap is printed, not
+#     gated: the reference's decode positions run P - 1 ahead of prefill's.
+# (b) a depth cut in float32 on both sides, TF32 off, the card against the
+#     port on the CPU, prefill logits and one decode step: 2^-12, as
+#     serve_moe_numerics (b).
+FAMILY_DECODE_VS_PREFILL_REL = 2.0 ** -4
+XLSTM_REFERENCE_GAP = 0.004463571963611083
+XLSTM_DECODE_VS_FORWARD_REL = max(2.0 ** -4, 2 * XLSTM_REFERENCE_GAP)
+FAMILY_CARD_VS_CPU_REL = 2.0 ** -12
+# (b)'s cuts by family: layers (whisper: encoder and decoder each; three
+# for RecurrentGemma, so that one local-attention layer is in), batch,
+# tokens (vlm: the 256 vision positions and 64 text tokens)
+FAMILY_CUTS = {"vlm": (2, 1, 320), "encdec": (2, 2, 64),
+               "hybrid": (3, 2, 128), "xlstm": (12, 2, 320)}
+
+
+def family_batch(model, tokens: torch.Tensor, seed: int) -> dict:
+    """A prefill batch for `tokens`: the other inputs of
+    `ModelApi.prefill_inputs` (the vlm family's vision embeddings, whisper's
+    frames) drawn from a seeded torch.Generator on the tokens' device."""
+    gen = torch.Generator(device=tokens.device).manual_seed(seed)
+    batch = {"tokens": tokens}
+    for name, spec in model.prefill_inputs(*tokens.shape).items():
+        if name != "tokens":
+            batch[name] = torch.randn(spec.shape, generator=gen,
+                                      device=tokens.device).to(spec.dtype)
+    return batch
+
+
+def family_bounds(cfg, B: int, S: int) -> dict:
+    """Prefill operations for B rows of S tokens, counted as the reference
+    computes them (bf16 products, float32 ones), and the decode step's
+    bytes at position S (every weight the step reads and its caches or
+    states read once, states written once)."""
+    d, H, G, hd, L, V = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                         cfg.hd, cfg.num_layers, cfg.vocab_size)
+    attn = 2 * d * H * hd + 2 * d * G * hd           # q, k, v, o weights
+    unembed = 2 * d * V * B                          # last position, float32
+    if cfg.family == "vlm":
+        flops, decode_bytes = dense_bounds(cfg, B, S)
+        return dict(bf16=flops - unembed, f32=unembed,
+                    decode_bytes=decode_bytes)
+    if cfg.family == "hybrid":
+        n_att = sum(cfg.is_attn_layer(l) for l in range(L))
+        n_rec = L - n_att
+        per_tok = n_rec * 5 * d * d + n_att * attn + L * 3 * d * cfg.d_ff
+        pairs = sum(min(i + 1, cfg.window) for i in range(S))
+        W, w = cfg.window or S, cfg.rglru_conv_width
+        return dict(
+            bf16=2 * per_tok * B * S + n_att * 2 * 2 * H * hd * B * pairs,
+            f32=unembed,
+            decode_bytes=(2 * per_tok + 2 * d * V
+                          + n_att * 2 * B * W * G * hd * 2
+                          + n_rec * B * (d * 4 + (w - 1) * d * 2) * 2))
+    if cfg.family == "xlstm":
+        n_m, n_s = (L + 1) // 2, L // 2
+        hd = d // H
+        per_tok = n_m * (5 * d * d + 2 * d * H) + n_s * 5 * d * d
+        Lc = min(256, S)
+        chunks = -(-S // Lc)
+        pairs = Lc * (Lc + 1) // 2                   # causal, a chunk
+        state = n_m * B * (H * hd * hd * 2 + H * hd * 2 + H * 4) \
+            + n_s * B * 2 * d * 4
+        return dict(
+            bf16=2 * per_tok * B * S + n_m * chunks * 2 * B * pairs * H * hd,
+            # num, n_i, q.C and the C update, and forward's logits at
+            # every position (the reference's stateless prefill)
+            f32=n_m * chunks * (2 * 2 * B * pairs * H * hd
+                                + 2 * 2 * B * Lc * H * hd * hd)
+            + 2 * d * V * B * S,
+            decode_bytes=2 * per_tok + 2 * d * V + 2 * state)
+    check(cfg.family == "encdec", f"no bounds for {cfg.family}")
+    Fr, Le, F_ = 1500, cfg.encoder_layers, cfg.d_ff
+    enc = B * Fr
+    return dict(
+        bf16=(2 * enc * (d * d + Le * (attn + 2 * d * F_))
+              + Le * 2 * 2 * H * hd * B * Fr * Fr
+              + 2 * B * S * L * (attn + 2 * d * H * hd + 2 * d * F_)
+              + 2 * enc * L * 2 * d * G * hd
+              + L * 2 * H * hd * B * S * (S + 1)
+              + L * 2 * 2 * H * hd * B * S * Fr),
+        f32=unembed,
+        decode_bytes=(2 * L * (attn + 2 * d * H * hd + 2 * d * F_)
+                      + 2 * d * V
+                      + L * 2 * B * (S + 2) * G * hd * 2
+                      + L * 2 * B * Fr * G * hd * 2))
+
+
+def model_report(model, params, batch: dict, steps: int) -> dict:
+    """Prefill and decode timed (`time_prefill_decode`), the decode step
+    profiled (`decode_profile`), each beside its bound."""
+    cfg = model.cfg
+    B, S = batch["tokens"].shape
+    timing = time_prefill_decode(model, params, batch, steps)
+    prof = decode_profile(model, params, batch)
+    bounds = family_bounds(cfg, B, S)
+    ops_ms = (bounds["bf16"] / BF16_PEAK_FLOPS
+              + bounds["f32"] / F32_PEAK_FLOPS) * 1e3
+    device_ms = prof["device_ms_per_step"]
+    return dict(
+        prefill_ms=timing["prefill_ms"], prefill_tokens=B * S,
+        prefill_tokens_per_s=B * S / timing["prefill_ms"] * 1e3,
+        prefill_bf16_flops=bounds["bf16"], prefill_f32_flops=bounds["f32"],
+        prefill_bound_ms=ops_ms,
+        prefill_bound_by="operations (bf16 at 989 TFLOP/s, float32 at "
+                         "67 TFLOP/s)",
+        prefill_bound_share=ops_ms / timing["prefill_ms"],
+        decode_batch=B, decode_position=S,
+        decode_ms_per_step=timing["decode_ms_per_step"],
+        decode_wall_ms_per_step=timing["decode_wall_ms_per_step"],
+        decode_bytes=bounds["decode_bytes"],
+        decode_bound_ms=bounds["decode_bytes"] / HBM_BYTES_PER_S * 1e3,
+        decode_bound_by="bytes (every weight the step reads, its caches "
+                        "or states read once, states written once, "
+                        "3.35 TB/s)",
+        device_ms_per_step=device_ms,
+        device_busy_share=device_ms / timing["decode_ms_per_step"]
+        if device_ms != "not measured" else "not measured",
+        device_events_per_step=prof["device_events_per_step"],
+        cuda_launch_kernel_calls_per_step=prof[
+            "cuda_launch_kernel_calls_per_step"],
+        top_device_us_per_step=prof["top_device_us_per_step"][:5])
+
+
+def rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want|."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def decode_vs_prefill(model, params, batch: dict, x: int) -> dict:
+    """(a) At full width: decode_step of token x at position S after a
+    prefill of one row of S tokens, against the last logits of a prefill
+    of the S + 1 tokens; for xLSTM, whose prefill returns a fresh state,
+    decode token by token from init_state over the S + 1 tokens against
+    forward's last logits."""
+    S = batch["tokens"].shape[1]
+    dev = batch["tokens"].device
+    tok = torch.tensor([x], device=dev)
+    longer = dict(batch, tokens=torch.cat([batch["tokens"], tok[None]], 1))
+    if model.cfg.family == "xlstm":
+        states = xlstm.init_state(model.cfg, 1, model.cfg.param_dtype, dev)
+        for t in range(S + 1):
+            decode, states = model.decode_step(
+                params, longer["tokens"][:, t], states, t)
+        full = model.forward(params, longer)[:, -1]
+    else:
+        _, caches = model.prefill(params, batch)
+        decode, _ = model.decode_step(params, tok,
+                                      _grow(model, caches, S + 1), S)
+        full, _ = model.prefill(params, longer)
+    top2 = torch.topk(full.float(), 2, -1).values[0]
+    return dict(position=S, token=x,
+                max_abs_gap=float((decode.float() - full.float()).abs().max()),
+                rel_gap=rel_gap(decode, full),
+                top2_margin=float(top2[0] - top2[1]),
+                largest_logit=float(full.float().abs().max()),
+                same_greedy_token=int(decode.argmax()) == int(full.argmax()))
+
+
+def cut_vs_cpu(model, params, seed: int, dev) -> dict:
+    """(b) A depth cut of the same weights in float32 on both sides, TF32
+    off: the card's prefill logits and one decode step (the CPU's greedy
+    token) against the port's on the CPU."""
+    cfg = model.cfg
+    layers, B, S = FAMILY_CUTS[cfg.family]
+    cut = dataclasses.replace(cfg, num_layers=layers,
+                              param_dtype=torch.float32)
+    if cfg.family == "encdec":
+        cut = dataclasses.replace(cut, encoder_layers=layers)
+        sub = dict(params, encoder=params["encoder"][:layers],
+                   decoder=params["decoder"][:layers])
+    else:
+        sub = dict(params, layers=params["layers"][:layers])
+    m = get_model(cut)
+    rng = np.random.default_rng(seed + 3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                           device=dev)
+    card_batch = {k: v if k == "tokens" else v.float() for k, v in
+                  family_batch(m, toks, seed + 3).items()}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = {}
+        for name, d in (("cpu", "cpu"), ("cuda", dev)):
+            p = tree_map(lambda t: t.to(device=d, dtype=torch.float32), sub)
+            b = {k: v.to(d) for k, v in card_batch.items()}
+            logits, caches = m.prefill(p, b)
+            nxt = torch.argmax(outs["cpu"][0] if name == "cuda" else logits,
+                               -1).to(d)
+            step, _ = m.decode_step(p, nxt, _grow(m, caches, S + 1), S)
+            outs[name] = [logits.float().cpu(), step.float().cpu()]
+            del p, b, caches
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    gaps = [rel_gap(g, w) for g, w in zip(outs["cuda"], outs["cpu"])]
+    check(max(gaps) <= FAMILY_CARD_VS_CPU_REL,
+          f"{cfg.name}: card against CPU {gaps} of the largest logit > "
+          f"{FAMILY_CARD_VS_CPU_REL}")
+    return dict(layers=layers, batch=B, tokens=S, dtype="float32",
+                tf32=False, rel_gap_prefill=gaps[0], rel_gap_decode=gaps[1],
+                tolerance_rel=FAMILY_CARD_VS_CPU_REL)
+
+
+def family_numerics(model, params, pool: list, seed: int, dev) -> dict:
+    """(a) and (b) for one family, each checked against its tolerance
+    (vlm's (a) is printed, not gated)."""
+    cfg = model.cfg
+    rng = np.random.default_rng(seed + 2)
+    x = int(rng.integers(0, cfg.vocab_size))
+    S = WHISPER_TOKENS if cfg.family == "encdec" else SERVE_PROMPT
+    tokens = torch.as_tensor(pool[1][None, :S].astype(np.int64), device=dev)
+    a = decode_vs_prefill(model, params, family_batch(model, tokens, seed),
+                          x)
+    tol = {"vlm": None, "xlstm": XLSTM_DECODE_VS_FORWARD_REL}.get(
+        cfg.family, FAMILY_DECODE_VS_PREFILL_REL)
+    a["tolerance_rel"] = tol if tol is not None else "not gated"
+    if tol is not None:
+        check(a["rel_gap"] <= tol,
+              f"{cfg.name}: decode against prefill {a['rel_gap']} of the "
+              f"largest logit > {tol}")
+        check(a["top2_margin"] <= tol * a["largest_logit"]
+              or a["same_greedy_token"],
+              f"{cfg.name}: decode and prefill pick other tokens where the "
+              "margin exceeds the tolerance")
+    return dict(decode_vs_prefill=a, card_vs_cpu=cut_vs_cpu(model, params,
+                                                             seed, dev))
+
+
+def phase_serve_recurrent(seed: int, arch: str, dev) -> dict:
+    """`serve`'s stream through the governed, traced engine at the full
+    size of a recurrent family (RecurrentGemma, xLSTM): a cache of four
+    512-token blobs (the reference's blob, row b of every layer's first
+    cache tensor; the 2304-token prompt's is as large, since the window or
+    the state caps it). Every billing check of `serve`, the bill equal to
+    the host rehearsal (`rehearse`), no kernel launched; prefill and
+    decode timed and profiled beside their bounds; the family's numerics.
+    The weights are freed at the end."""
+    t_phase = time.perf_counter()
+    model, params, setup = serve_setup(seed, dev, arch)
+    cfg = model.cfg
+    V = cfg.vocab_size
+    pool, _, rounds = serve_requests(seed, V)
+    capacity = 4 * blob_bytes(cfg, SERVE_PROMPT)
+    predicted = rehearse(cfg, seed, capacity)
+    tracer, events = Tracer(), EventLog()
+    engine = ServeEngine(model, params, prefix_cache_bytes=capacity,
+                         policy="gdsf", govern=True,
+                         governor_window=SERVE_WINDOW, tracer=tracer,
+                         events=events)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    round_s, _ = serve_rounds(engine, rounds, V)
+    launches = ops.launch_counts()
+    check(launches == NO_LAUNCHES, f"{arch} launched kernels: {launches}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    bill = billing_checks(engine, tracer, events, cfg, rounds, capacity)
+    store, cache, audit = engine.store, engine.cache, bill["audit"]
+    check(cache.meter.dollars == predicted["dollars"]
+          and bill["kinds"] == predicted["events"],
+          f"{arch}: bill {cache.meter.dollars!r} {bill['kinds']}, the "
+          f"rehearsal's {predicted['dollars']!r} {predicted['events']}")
+    rid = sum(len(rnd) for rnd in rounds)
+    again = [engine.serve([Request(rid + i, pool[0], SERVE_NEW)])[0].output
+             for i in range(2)]
+    check(np.array_equal(*again), f"one prompt, two outputs: {again}")
+    tokens = torch.as_tensor(np.stack(pool[:SERVE_PER_ROUND]).astype(np.int64),
+                             device=dev)
+    report = model_report(model, params, {"tokens": tokens}, steps=16)
+    numerics = family_numerics(model, params, pool, seed, dev)
+    emit("serve_hybrid" if cfg.family == "hybrid" else "serve_xlstm",
+         arch=arch, family=cfg.family, layers=cfg.num_layers,
+         d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+         head_dim=cfg.hd, d_ff=cfg.d_ff, vocab=V, window=cfg.window,
+         params=setup["params"], param_bytes=setup["param_bytes"],
+         param_gib=setup["param_bytes"] / 2**30, init_s=setup["init_s"],
+         reduced=None, price=SERVE_PRICE, cache_bytes=capacity,
+         blob_bytes={"pool": blob_bytes(cfg, SERVE_PROMPT),
+                     "long": blob_bytes(cfg, SERVE_LONG)},
+         rounds=SERVE_ROUNDS, requests=rid, round_s=round_s,
+         peak_device_gib=peak_gib, launches=launches,
+         gets=store.meter.gets, hits=cache.hits, misses=cache.misses,
+         dollars=cache.meter.dollars, rehearsal_dollars=predicted["dollars"],
+         events=bill["kinds"], policy=cache.policy,
+         swaps=len(engine.governor.swaps), audit=audit.summary(),
+         dollar_regret=audit.dollar_regret,
+         opt_dollars=[audit.opt_dollars_lower, audit.opt_dollars_upper],
+         host_replay_equal=True, span_dollars=bill["span_dollars"],
+         repeat_tokens_equal=True, **report,
+         seconds=time.perf_counter() - t_phase)
+    del engine, model, params
+    torch.cuda.empty_cache()
+    return numerics
+
+
+def phase_model(seed: int, arch: str, dev, layers: int | None = None) -> dict:
+    """A family the engine cannot serve (it prefills tokens alone, as the
+    reference's does) through `ModelApi`: prefill of four rows (vlm: 512
+    positions, the first 256 vision embeddings; whisper: 1500 frames and
+    448 decoder tokens), then MODEL_DECODE_STEPS greedy decode steps after
+    `_grow`, no kernel launched; timed and profiled beside the bounds; the
+    family's numerics. The weights are freed at the end."""
+    t_phase = time.perf_counter()
+    model, params, setup = serve_setup(seed, dev, arch, layers)
+    cfg = model.cfg
+    S = WHISPER_TOKENS if cfg.family == "encdec" else SERVE_PROMPT
+    pool, _, _ = serve_requests(seed, cfg.vocab_size)
+    tokens = torch.as_tensor(np.stack(pool[:SERVE_PER_ROUND])[:, :S]
+                             .astype(np.int64), device=dev)
+    batch = family_batch(model, tokens, seed)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    logits, caches = model.prefill(params, batch)
+    caches = _grow(model, caches, S + MODEL_DECODE_STEPS)
+    for step in range(MODEL_DECODE_STEPS + 1):
+        check(logits.shape == (SERVE_PER_ROUND, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"{arch}: bad logits after {step} decode steps")
+        if step < MODEL_DECODE_STEPS:
+            logits, caches = model.decode_step(
+                params, torch.argmax(logits, -1), caches, S + step)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check(launches == NO_LAUNCHES, f"{arch} launched kernels: {launches}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del caches
+    report = model_report(model, params, batch, steps=MODEL_DECODE_STEPS)
+    numerics = family_numerics(model, params, pool, seed, dev)
+    full = get_config(arch)
+    emit("model_vlm" if cfg.family == "vlm" else "model_whisper",
+         arch=arch, family=cfg.family, layers=cfg.num_layers,
+         encoder_layers=cfg.encoder_layers, d_model=cfg.d_model,
+         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
+         d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+         inputs={k: list(v.shape) for k, v in batch.items()},
+         params=setup["params"], param_bytes=setup["param_bytes"],
+         param_gib=setup["param_bytes"] / 2**30, init_s=setup["init_s"],
+         reduced=None if layers is None else dict(
+             num_layers=[full.num_layers, layers],
+             why="80 layers are 72.7 B parameters, 145 GB in bf16: one "
+                 "80 GB card holds 20 (sharding is ROADMAP item 9)"),
+         peak_device_gib=peak_gib, launches=launches, **report,
+         seconds=time.perf_counter() - t_phase)
+    del model, params, batch
+    torch.cuda.empty_cache()
+    return numerics
+
+
+def phase_families(seed: int, dev) -> None:
+    """serve_hybrid, serve_xlstm, model_vlm and model_whisper, each on its
+    own weights, then the four families' numerics on one line."""
+    numerics = {HYBRID_ARCH: phase_serve_recurrent(seed, HYBRID_ARCH, dev),
+                XLSTM_ARCH: phase_serve_recurrent(seed, XLSTM_ARCH, dev),
+                VLM_ARCH: phase_model(seed, VLM_ARCH, dev, VLM_LAYERS),
+                WHISPER_ARCH: phase_model(seed, WHISPER_ARCH, dev)}
+    emit("families_numerics", **numerics,
+         xlstm_reference_gap=XLSTM_REFERENCE_GAP)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -1787,6 +2252,7 @@ def main() -> int:
     phase_replay_profile(full["trace"], full["execute_s"])
     phase_serving(args.seed, dev)
     phase_moe_serving(args.seed, dev)
+    phase_families(args.seed, dev)
     # each kernel's launches on its own path, counted from 0 around it
     launches = {"evict_argmin": full["launches"]["evict_argmin"],
                 "next_use": full["launches"]["next_use"],

@@ -206,6 +206,94 @@ def apply_rope(x, positions, theta=1e4, fraction=1.0):
     return torch.cat([out.to(x.dtype), xp], -1) if rd < D else out.to(x.dtype)
 
 
+def apply_mrope(x, positions3, sections, theta=1e4):
+    """qwen2-vl M-RoPE: three position streams over head-dim sections.
+
+    x: (B, S, H, D); positions3: (3, B, S); sections: half-dim split sizes
+    summing to D/2.
+    """
+    D = x.shape[-1]
+    half = D // 2
+    assert sum(sections) == half, (sections, half)
+    dev = x.device
+    freq = 1.0 / (theta ** (torch.arange(0, D, 2, dtype=torch.float32,
+                                         device=dev) / D))
+    # choose which position stream drives each frequency band
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=dev),
+        torch.tensor(sections, device=dev), output_size=half)
+    pos = positions3.to(torch.float32)[sec_id]             # (half, B, S)
+    ang = (pos * freq[:, None, None]).permute(1, 2, 0)     # (B, S, half)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    o1 = x1 * cos - x2 * sin
+    o2 = x1 * sin + x2 * cos
+    return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def softplus(x):
+    """`jax.nn.softplus`: logaddexp(x, 0), with no switch to x for large x
+    (F.softplus has one above 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def log_sigmoid(x):
+    """`jax.nn.log_sigmoid`: -softplus(-x)."""
+    return -softplus(-x)
+
+
+def linear_recurrence(l, r):
+    """The associative combine of y_t = a_t y_{t-1} + b_t on pairs (a, b),
+    as RG-LRU and sLSTM write it."""
+    return l[0] * r[0], r[0] * l[1] + r[1]
+
+
+def _interleave(a, b, dim: int):
+    """[a0, b0, a1, b1, ...] along `dim` (a may be one longer), formed as
+    JAX forms it: each side padded with zeros and the two added, so a
+    negative zero comes out positive, as there."""
+    n = a.shape[dim] + b.shape[dim]
+    shape = list(a.shape)
+    shape[dim] = n
+    out = a.new_zeros(shape)
+    idx = [slice(None)] * a.ndim
+    idx[dim] = slice(0, n, 2)
+    out[tuple(idx)] = a
+    idx[dim] = slice(1, n, 2)
+    out[tuple(idx)] = b
+    return out + 0
+
+
+def associative_scan(fn, elems, dim: int):
+    """Inclusive scan of the tuple `elems` along `dim` with the associative
+    `fn(left, right) -> tuple`: `jax.lax.associative_scan`'s odd/even
+    recursion, step for step (pairs [0:-1:2] with [1::2], recurse, combine
+    the odd results with [2::2], interleave), so `fn` is applied to the
+    same operands in the same order and float results keep JAX's bits.
+    O(log S) rounds of tensor ops, not S."""
+    elems = tuple(elems)
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+
+    def sl(t, start, stop=None, step=1):
+        idx = [slice(None)] * t.ndim
+        idx[dim] = slice(start, stop, step)
+        return t[tuple(idx)]
+
+    reduced = fn(tuple(sl(e, 0, -1, 2) for e in elems),
+                 tuple(sl(e, 1, None, 2) for e in elems))
+    odd = associative_scan(fn, reduced, dim)
+    if n % 2 == 0:
+        even = fn(tuple(sl(e, 0, -1) for e in odd),
+                  tuple(sl(e, 2, None, 2) for e in elems))
+    else:
+        even = fn(odd, tuple(sl(e, 2, None, 2) for e in elems))
+    even = tuple(torch.cat([sl(e, 0, 1), r], dim=dim)
+                 for e, r in zip(elems, even))
+    return tuple(_interleave(e, o, dim) for e, o in zip(even, odd))
+
+
 def _mask(Sq, Sk, causal, window, q_offset, k_offset, device, kidx=None,
           k_valid=None):
     """(Sq, Sk) bool: the key is at a position >= 0, and (causal) not after

@@ -4,11 +4,13 @@ The port of `repro.models.registry`. Every family exposes:
   param_defs / init                     — parameters
   forward(params, batch)                — full-sequence logits
   prefill(params, batch) -> (logits, caches)
-  decode_step(params, token, caches, position)
+  decode_step(params, token, caches, position) — new caches; the caches
+                                          given are left unchanged
+  prefill_inputs(batch_size, seq_len)   — the prefill batch's shapes
   abstract_caches(batch_size, max_seq)  — the decode state's shapes
 
-The dense and moe families are ported; the others raise (ROADMAP queue
-1, item 7). Training (`loss_fn`) is item 8.
+All six families are ported. Training (`loss_fn`, `train_inputs`) is
+ROADMAP queue 1, item 8.
 """
 from __future__ import annotations
 
@@ -18,15 +20,16 @@ from typing import Any
 import torch
 
 from ..core import resolve_device
-from . import transformer
+from . import rglru, transformer, whisper, xlstm
 from .common import ArchConfig, init_params
 
-_FAMILY_MODULES = {"dense": transformer, "moe": transformer}
-_NOT_PORTED = {
-    "vlm": "the vlm family (M-RoPE) is ROADMAP queue 1, item 7",
-    "xlstm": "the xlstm family is ROADMAP queue 1, item 7",
-    "hybrid": "the hybrid (rglru) family is ROADMAP queue 1, item 7",
-    "encdec": "the encdec (whisper) family is ROADMAP queue 1, item 7",
+_FAMILY_MODULES = {
+    "dense": transformer,
+    "moe": transformer,
+    "vlm": transformer,
+    "xlstm": xlstm,
+    "hybrid": rglru,
+    "encdec": whisper,
 }
 
 
@@ -60,29 +63,74 @@ class ModelApi:
     def decode_step(self, params, token, caches, position):
         return self.mod.decode_step(self.cfg, params, token, caches, position)
 
+    # ---- inputs ------------------------------------------------------------
+    def prefill_inputs(self, batch_size: int, seq_len: int):
+        """Meta tensors of a prefill batch: tokens, and the vlm family's
+        vision embeddings or whisper's 1500 frames (the stub frontends)."""
+        cfg = self.cfg
+        specs = {"tokens": _meta((batch_size, seq_len), torch.int32)}
+        if cfg.family == "vlm":
+            specs["vision_embeds"] = _meta(
+                (batch_size, cfg.num_vision_tokens, cfg.d_model),
+                cfg.param_dtype)
+        if cfg.family == "encdec":
+            specs["frames"] = _meta((batch_size, 1500, cfg.d_model),
+                                    cfg.param_dtype)
+        return specs
+
     # ---- decode cache specs -------------------------------------------------
     def abstract_caches(self, batch_size: int, max_seq: int):
-        """Meta tensors of the decode state at a given cache length: windowed
-        layers hold min(max_seq, window) keys, the others max_seq."""
+        """Meta tensors of the decode state at a given cache length, with
+        the reference's shapes and dtypes: windowed layers hold
+        min(max_seq, window) keys, the others max_seq; recurrent layers
+        their states; whisper's cross caches the 1500 encoder frames."""
         cfg = self.cfg
-        G, hd = cfg.num_kv_heads, cfg.hd
+        dt = cfg.param_dtype
+        G, hd, d = cfg.num_kv_heads, cfg.hd, cfg.d_model
 
         def kv(length):
-            s = torch.empty((batch_size, length, G, hd),
-                            dtype=cfg.param_dtype, device="meta")
+            s = _meta((batch_size, length, G, hd), dt)
             return (s, s)
 
         caches = []
-        for l in range(cfg.num_layers):
-            if cfg.window and (cfg.global_every <= 0
-                               or not cfg.is_global_layer(l)):
-                caches.append(kv(min(max_seq, cfg.window)))
-            else:
-                caches.append(kv(max_seq))
+        if cfg.family == "xlstm":
+            H = cfg.num_heads
+            hd2 = d // H
+            for l in range(cfg.num_layers):
+                if l % 2 == 0:
+                    caches.append((_meta((batch_size, H, hd2, hd2), dt),
+                                   _meta((batch_size, H, hd2), dt),
+                                   _meta((batch_size, H), torch.float32)))
+                else:
+                    caches.append((_meta((batch_size, d), torch.float32),
+                                   _meta((batch_size, d), torch.float32)))
+        elif cfg.family == "hybrid":
+            w = cfg.rglru_conv_width
+            kv_len = min(max_seq, cfg.window) if cfg.window else max_seq
+            for l in range(cfg.num_layers):
+                if cfg.is_attn_layer(l):
+                    caches.append(kv(kv_len))
+                else:
+                    caches.append((_meta((batch_size, d), torch.float32),
+                                   _meta((batch_size, w - 1, d), dt)))
+        elif cfg.family == "encdec":
+            for _ in range(cfg.num_layers):
+                sk, sv = kv(max_seq)
+                ck, cv = kv(1500)
+                caches.append((sk, sv, ck, cv))
+        else:
+            for l in range(cfg.num_layers):
+                if cfg.window and (cfg.global_every <= 0
+                                   or not cfg.is_global_layer(l)):
+                    caches.append(kv(min(max_seq, cfg.window)))
+                else:
+                    caches.append(kv(max_seq))
         return caches
 
 
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
 def get_model(cfg: ArchConfig) -> ModelApi:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[cfg.family])
     return ModelApi(cfg, _FAMILY_MODULES[cfg.family])

@@ -1,30 +1,29 @@
-"""Decoder-only transformer backbone on PyTorch: the dense and MoE families.
+"""Decoder-only transformer backbone on PyTorch: dense, MoE and VLM.
 
 The port of `repro.models.transformer` for chatglm3-6b, phi4-mini-3.8b,
-mistral-nemo-12b, gemma3-4b (5:1 local:global windows), qwen2-moe-a2.7b and
-kimi-k2-1t-a32b (MoE layers from `moe.py`). Layers are per-layer parameter
-dicts applied in a Python loop, as in the reference. M-RoPE (the vlm
-family) raises (ROADMAP queue 1, item 7); the stacked (scanned) layout
-raises (item 10).
+mistral-nemo-12b, gemma3-4b (5:1 local:global windows), qwen2-moe-a2.7b,
+kimi-k2-1t-a32b (MoE layers from `moe.py`) and the qwen2-vl-72b backbone
+(M-RoPE and a stub vision prefix). Layers are per-layer parameter dicts
+applied in a Python loop, as in the reference. The stacked (scanned)
+layout raises (ROADMAP queue 1, item 10).
 
-Decode writes each new key and value into the preallocated cache in place
-(the reference's `dynamic_update_slice` builds a new array); a write past
-the cache's end raises where the reference would clamp the index.
+Decode never writes into the caches it is given: each new key and value
+goes into a new cache, as the reference's `dynamic_update_slice` builds a
+new array, and a write that would run past the end starts earlier, as
+there.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .common import (ArchConfig, ParamDef, apply_rope, attention,
-                     chunked_attention, ffn, rms_norm)
+from .common import (ArchConfig, ParamDef, apply_mrope, apply_rope,
+                     attention, chunked_attention, ffn, rms_norm)
 from .moe import moe_ffn_apply, moe_ffn_defs
 
 # attention score materialization is capped; larger S*K uses the chunked
 # (online-softmax) path, as in the reference
 _FULL_ATTN_LIMIT = 2048 * 2048
-
-_MROPE = "M-RoPE (the vlm family) is ROADMAP queue 1, item 7"
 
 
 def _attn_defs(cfg: ArchConfig) -> dict:
@@ -88,11 +87,29 @@ def _positions(B: int, S: int, device):
         .expand(B, S)
 
 
+def _mrope_positions(cfg: ArchConfig, B: int, S: int, device):
+    """Stub M-RoPE ids (3, B, S): the vision prefix gets a (t=0, h, w)
+    grid, text advances all three streams together (qwen2-vl convention,
+    frontend stubbed)."""
+    P = cfg.num_vision_tokens
+    side = max(1, int(P ** 0.5))
+    idx = torch.arange(S, device=device)
+    vision = idx < P
+    text = idx - P + 1
+    t_ids = torch.where(vision, 0, text)
+    h_ids = torch.where(vision, idx // side, text)
+    w_ids = torch.where(vision, idx % side, text)
+    pos3 = torch.stack([t_ids, h_ids, w_ids]).to(torch.int32)
+    return pos3[:, None, :].expand(3, B, S)
+
+
 def _rotate(cfg: ArchConfig, q, k, positions):
     if cfg.mrope_sections:
-        raise NotImplementedError(_MROPE)
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+        q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     return q, k
 
 
@@ -104,15 +121,17 @@ def _layer_window(cfg: ArchConfig, layer: int) -> int:
 
 
 def _write(cache, x, at: int):
-    """Write x (B, S, G, hd) into cache (B, W, G, hd) at position `at`, in
-    place. The reference's dynamic_update_slice clamps an index that runs
-    past the end; this raises instead."""
+    """A new cache: `cache` (B, W, ...) with x (B, S, ...) written at
+    position `at` along dim 1; `cache` itself is left as it was. The start
+    is taken as `dynamic_update_slice_in_dim` takes it: a negative one
+    counts from the end, then it is clamped to [0, W - S], so a write that
+    would run past the end lands on the last S rows."""
     W, S = cache.shape[1], x.shape[1]
-    if not 0 <= at <= W - S:
-        raise IndexError(f"cache write at {at} of {S} keys past a cache of "
-                         f"{W}")
-    cache[:, at:at + S] = x.to(cache.dtype)
-    return cache
+    at = int(at)
+    at = min(max(at + W if at < 0 else at, 0), W - S)
+    out = cache.clone()
+    out[:, at:at + S] = x.to(cache.dtype)
+    return out
 
 
 def _self_attn(cfg: ArchConfig, p, x, positions, *, layer: int, q_offset=0,
@@ -142,8 +161,8 @@ def _self_attn(cfg: ArchConfig, p, x, positions, *, layer: int, q_offset=0,
             k_offset = int(q_offset) - W + 1
         else:
             # full cache: write at q_offset (preallocated timeline)
-            ck = _write(ck, k, int(q_offset))
-            cv = _write(cv, v, int(q_offset))
+            ck = _write(ck, k, q_offset)
+            cv = _write(cv, v, q_offset)
         k, v = ck, cv
         new_cache = (ck, cv)
     else:
@@ -173,9 +192,17 @@ def _block(cfg: ArchConfig, p, x, positions, *, layer: int, q_offset=0,
 
 
 def _embed_inputs(cfg: ArchConfig, params, batch):
+    x = params["embed"][batch["tokens"]].to(cfg.param_dtype)
     if cfg.num_vision_tokens > 0:
-        raise NotImplementedError(_MROPE)
-    return params["embed"][batch["tokens"]].to(cfg.param_dtype)
+        P = cfg.num_vision_tokens
+        ve = batch["vision_embeds"].to(x.dtype)
+        x = torch.cat([ve, x[:, P:]], dim=1)
+    return x
+
+
+def _seq_positions(cfg: ArchConfig, B: int, S: int, device):
+    return (_mrope_positions(cfg, B, S, device) if cfg.mrope_sections
+            else _positions(B, S, device))
 
 
 def _logits(params, x):
@@ -188,7 +215,7 @@ def forward(cfg: ArchConfig, params, batch):
     """Full-sequence forward -> logits (B, S, V) in f32."""
     x = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
-    positions = _positions(B, S, x.device)
+    positions = _seq_positions(cfg, B, S, x.device)
     for l, p in enumerate(params["layers"]):
         x, _ = _block(cfg, p, x, positions, layer=l)
     x = rms_norm(x, params["ln_f"])
@@ -202,7 +229,7 @@ def prefill(cfg: ArchConfig, params, batch):
     left-padded with zeros when the prompt is shorter than W."""
     x = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
-    positions = _positions(B, S, x.device)
+    positions = _seq_positions(cfg, B, S, x.device)
     caches = []
     for l, p in enumerate(params["layers"]):
         x, kv = _block(cfg, p, x, positions, layer=l)
@@ -220,14 +247,16 @@ def prefill(cfg: ArchConfig, params, batch):
 def decode_step(cfg: ArchConfig, params, token, caches, position):
     """One decode step against preallocated KV caches.
 
-    token: (B,) int; caches: list of (k, v) each (B, S_max, G, hd), written
-    in place where they are full timelines; position: the current write
-    index (an int). Returns (logits (B, V), new caches).
+    token: (B,) int; caches: list of (k, v) each (B, S_max, G, hd), left
+    as they are; position: the current write index (an int). The vlm
+    family rotates all three M-RoPE streams by `position`, as the
+    reference does. Returns (logits (B, V), new caches).
     """
     B = token.shape[0]
     position = int(position)
     x = params["embed"][token][:, None].to(cfg.param_dtype)
-    positions = torch.full((B, 1), position, dtype=torch.int32,
+    shape = (3, B, 1) if cfg.mrope_sections else (B, 1)
+    positions = torch.full(shape, position, dtype=torch.int32,
                            device=x.device)
     new_caches = []
     for l, p in enumerate(params["layers"]):

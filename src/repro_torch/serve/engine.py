@@ -8,9 +8,12 @@ the exact offline reference.
 
 The engine runs prefill and greedy decode eagerly on its device (the card
 unless the caller passes `device="cpu"`). Each stored prefix blob holds
-one row's K cache of every layer in the reference's layout and byte
-order, so the bill, which depends only on byte lengths and the access
-order, is the reference's. Fleet mode (`fleet_nodes > 0`) partitions the
+one row of every layer's first cache tensor (its K cache, or a recurrent
+layer's first state) in the reference's layout, dtype and byte order, so
+the bill, which depends only on byte lengths and the access order, is the
+reference's. Like the reference, the engine prefills tokens alone, so the
+vlm and encdec families, which also need vision embeddings or frames,
+raise `KeyError` there. Fleet mode (`fleet_nodes > 0`) partitions the
 prefix cache across hash-sharded hosts (`repro_torch.fleet`), as the
 reference does.
 """
@@ -29,7 +32,6 @@ from repro_torch.core import resolve_device
 from repro_torch.egress.cache import EgressCache
 from repro_torch.egress.store import ObjectStore
 from repro_torch.fleet import Fleet
-from repro_torch.models.convert import tensor_bytes
 from repro_torch.models.registry import ModelApi
 from repro_torch.online import DollarGovernor, MetricsRegistry, WindowedAuditor
 
@@ -112,9 +114,11 @@ class ServeEngine:
         for b in range(prompts.shape[0]):
             key = _prefix_key(prompts[b])
             if not self.store.contains(key):
-                # one row's K cache of every layer, layer after layer
-                row = torch.cat([kv[0][b].reshape(-1) for kv in caches])
-                self.store.put(key, tensor_bytes(row))
+                # the bytes of one row of every layer's first cache tensor
+                # (its K cache, or its first state), layer after layer
+                row = torch.cat([kv[0][b].reshape(-1).view(torch.uint8)
+                                 for kv in caches])
+                self.store.put(key, row.cpu().numpy().tobytes())
         return logits, caches
 
     def _span(self, name: str, **attrs):
@@ -186,17 +190,18 @@ class ServeEngine:
 
 
 def _grow(model: ModelApi, caches, max_len: int):
-    """Pad every cache, windowed ones too, to `max_len` keys on the right:
-    the reference's dense branch (which moe caches take too), reproduced as
-    it is."""
-    if model.cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"{model.cfg.family} caches are ROADMAP "
-                                  "queue 1, item 7")
-    out = []
-    for (k, v) in caches:
-        pad = max_len - k.shape[1]
-        if pad > 0:
-            k = F.pad(k, (0, 0, 0, 0, 0, pad))
-            v = F.pad(v, (0, 0, 0, 0, 0, pad))
-        out.append((k, v))
-    return out
+    """Pad the prefill caches to `max_len` keys on the right, as the
+    reference does: every cache of the dense, moe and vlm families
+    (windowed ones too), whisper's self caches (its cross caches stay at
+    the encoder's length); the recurrent families' states as they are."""
+    family = model.cfg.family
+
+    def pad(t):
+        n = max_len - t.shape[1]
+        return F.pad(t, (0, 0, 0, 0, 0, n)) if n > 0 else t
+
+    if family in ("dense", "moe", "vlm"):
+        return [(pad(k), pad(v)) for k, v in caches]
+    if family == "encdec":
+        return [(pad(sk), pad(sv), ck, cv) for sk, sv, ck, cv in caches]
+    return caches

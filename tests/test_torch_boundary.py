@@ -23,7 +23,9 @@ def test_import_loads_no_jax_and_no_repro():
             "import repro_torch.models, repro_torch.configs, "
             "repro_torch.egress, repro_torch.obs, repro_torch.online, "
             "repro_torch.online.scenario, repro_torch.fleet, "
-            "repro_torch.models.moe, repro_torch.serve\n"
+            "repro_torch.models.moe, repro_torch.models.whisper, "
+            "repro_torch.models.rglru, repro_torch.models.xlstm, "
+            "repro_torch.serve\n"
             "bad = sorted(m for m in sys.modules if m.startswith('jax') or "
             "m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\n"

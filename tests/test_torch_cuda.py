@@ -505,3 +505,56 @@ def test_moe_layer_full_width_same_bits_twice(cuda, S):
     torch.cuda.synchronize()
     assert a.shape == x.shape and bool(torch.isfinite(a.float()).all())
     assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "whisper-large-v3",
+                                  "recurrentgemma-9b", "xlstm-125m"])
+def test_family_smoke_on_card_matches_cpu(cuda, arch):
+    """The vlm, encdec, hybrid and xlstm families at their smoke configs,
+    float32 with TF32 off, on the card against the CPU on the same weights
+    and inputs: forward, prefill (logits and every cache or state) and two
+    decode steps after `_grow`, within rtol = atol = 1e-4 (the two devices
+    sum products in other orders); the caches given to decode are left
+    unchanged."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              param_dtype=torch.float32)
+    model = get_model(cfg)
+    host = model.init(0, device="cpu")
+    card = tree_map(lambda t: t.to(cuda), host)
+    rng = np.random.default_rng(5)
+    S = 24
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (2, S)))}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.num_vision_tokens, cfg.d_model)).astype(np.float32))
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, 30, cfg.d_model)).astype(np.float32))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = {}
+        for dev, params in (("cpu", host), ("cuda", card)):
+            b = {k: v.to(dev) for k, v in batch.items()}
+            outs = [model.forward(params, b)]
+            logits, caches = model.prefill(params, b)
+            outs.append(logits)
+            outs += [t for layer in caches for t in layer]
+            caches = _grow(model, caches, S + 2)
+            tok = torch.tensor([3, 5], device=dev)
+            for step in range(2):
+                kept = [t.clone() for layer in caches for t in layer]
+                logits, new = model.decode_step(params, tok, caches, S + step)
+                assert all(torch.equal(a, b) for a, b in
+                           zip(kept, [t for layer in caches for t in layer]))
+                outs.append(logits)
+                outs += [t for layer in new for t in layer]
+                caches = new
+            got[dev] = [t.float().cpu().numpy() for t in outs]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert len(got["cuda"]) == len(got["cpu"])
+    for on_card, on_host in zip(got["cuda"], got["cpu"]):
+        np.testing.assert_allclose(on_card, on_host, rtol=1e-4, atol=1e-4)

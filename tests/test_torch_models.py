@@ -32,6 +32,8 @@ from repro_torch.models.convert import tensor_from_numpy
 from repro_torch.models import transformer
 from repro_torch.serve.engine import _grow
 
+import _torch_parity as parity
+
 DENSE = ["chatglm3-6b", "phi4-mini-3.8b", "mistral-nemo-12b", "gemma3-4b"]
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=2e-2, atol=1e-2)}
@@ -179,50 +181,68 @@ def test_init_without_a_device_needs_a_card(monkeypatch):
         get_model(get_config("phi4-mini-3.8b", smoke=True)).init(0)
 
 
-@pytest.mark.parametrize("family_arch", ["qwen2-vl-72b",
-                                         "xlstm-125m", "recurrentgemma-9b",
-                                         "whisper-large-v3"])
-def test_other_families_raise(family_arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(get_config(family_arch, smoke=True))
-
-
-@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "qwen2-moe-a2.7b"])
-def test_decode_step_writes_the_callers_cache_in_place(arch):
-    """The port's decode_step writes each new key and value into the
-    full-timeline cache it is given and hands back the same tensors; the
-    reference returns new arrays and leaves its input unchanged. A caller
-    that needs the old cache must clone it first. The logits are the
-    reference's all the same."""
-    rm, rp, tm, tp = _models(arch, "float32")
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "qwen2-moe-a2.7b",
+                                  "whisper-large-v3", "recurrentgemma-9b",
+                                  "xlstm-125m"])
+def test_decode_step_leaves_the_callers_cache_unchanged(arch):
+    """decode_step builds new caches (full timelines, shift caches,
+    recurrent states) and leaves the ones it is given as they were, byte
+    for byte, as the reference's does; so two calls on one input give the
+    same bits, and both equal the reference's outputs (float32, 1e-4)."""
+    rm, rp, tm, tp = parity.models(arch, "float32")
     S = 8
-    toks = np.random.default_rng(8).integers(
+    jb, tb = parity.batches(rm.cfg, 2, S, seed=8)
+    rl, rcache = rm.prefill(rp, jb)
+    _, tcache = tm.prefill(tp, tb)
+    rcache, tcache = ref_grow(rm, rcache, S + 2), _grow(tm, tcache, S + 2)
+    before = [[tensor_bytes(t) for t in layer] for layer in tcache]
+    rtok = jnp.argmax(rl, -1).astype(jnp.int32)
+    want, rnew = rm.decode_step(rp, rtok, rcache, jnp.int32(S))
+    got = [tm.decode_step(tp, parity.token_pair(rtok), tcache, S)
+           for _ in range(2)]
+    assert [[tensor_bytes(t) for t in layer] for layer in tcache] == before
+    assert torch.equal(got[0][0], got[1][0])
+    for logits, new in got:
+        np.testing.assert_allclose(_f32(logits), _f32(want),
+                                   **TOL["float32"])
+        parity.assert_caches_close(new, rnew, TOL["float32"])
+    changed = [not torch.equal(a, b) for layer, old in zip(got[0][1], tcache)
+               for a, b in zip(layer, old)]
+    assert any(changed)                 # the step wrote its new state
+
+
+def test_cache_write_past_the_end_is_clamped_as_the_reference():
+    """A write that would run past the cache's end starts at W - S, as
+    `dynamic_update_slice_in_dim` clamps it (a negative start counts from
+    the end first, as there), into a new cache. And
+    decode_step at a position past the grown cache equals the
+    reference's there."""
+    rng = np.random.default_rng(9)
+    cache = rng.standard_normal((2, 6, 1, 3)).astype(np.float32)
+    x = rng.standard_normal((2, 2, 1, 3)).astype(np.float32)
+    for at in (-9, -3, -1, 0, 3, 4, 5, 9):
+        want = jax.lax.dynamic_update_slice_in_dim(
+            jnp.asarray(cache), jnp.asarray(x), at, 1)
+        before = torch.from_numpy(cache.copy())
+        got = transformer._write(before, torch.from_numpy(x), at)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert torch.equal(before, torch.from_numpy(cache))
+
+    rm, rp, tm, tp = _models("phi4-mini-3.8b", "float32")
+    S = 8
+    toks = np.random.default_rng(10).integers(
         0, rm.cfg.vocab_size, (2, S)).astype(np.int32)
     rl, rcache = rm.prefill(rp, {"tokens": jnp.asarray(toks)})
     _, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(
         toks.astype(np.int64))})
     rcache, tcache = ref_grow(rm, rcache, S + 2), _grow(tm, tcache, S + 2)
-    ref_before = [np.asarray(k) for k, _ in rcache]
-    before = [(k.clone(), v.clone()) for k, v in tcache]
     rtok = jnp.argmax(rl, -1).astype(jnp.int32)
-    want, _ = rm.decode_step(rp, rtok, rcache, jnp.int32(S))
-    got, returned = tm.decode_step(
-        tp, torch.from_numpy(np.asarray(rtok).astype(np.int64)), tcache, S)
+    want, rnew = rm.decode_step(rp, rtok, rcache, jnp.int32(S + 4))
+    got, tnew = tm.decode_step(
+        tp, torch.from_numpy(np.asarray(rtok).astype(np.int64)), tcache,
+        S + 4)
     np.testing.assert_allclose(_f32(got), _f32(want), **TOL["float32"])
-    for (k, v), (nk, nv), (bk, bv) in zip(tcache, returned, before):
-        assert nk is k and nv is v                  # the same objects
-        for new, old in ((k, bk), (v, bv)):
-            assert torch.equal(new[:, :S], old[:, :S])
-            assert not torch.equal(new[:, S], old[:, S])   # row S written
-            assert torch.equal(new[:, S + 1:], old[:, S + 1:])
-    for (k, _), old in zip(rcache, ref_before):     # the reference's: as was
-        np.testing.assert_array_equal(np.asarray(k), old)
-
-
-def test_cache_write_past_the_end_raises():
-    cache = torch.zeros(1, 4, 1, 2)
-    with pytest.raises(IndexError):
-        transformer._write(cache, torch.ones(1, 1, 1, 2), 4)
+    parity.assert_caches_close(tnew, rnew, TOL["float32"])
 
 
 # ---------------------------------------------------------------------------
