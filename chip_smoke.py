@@ -35,6 +35,16 @@ toolkit. Its phases, in order, each printing one JSON line:
   prefills tokens alone): prefill, decode, timing and profile.
 * `families_numerics`: for those four, decode against prefill at full
   width, and a depth cut in float32 on the card against the CPU.
+* `train_xlstm`, `train_resume`: examples/train_100m.py's training run at
+  xlstm-125m's full size through the driver and the billed data path,
+  the data's bill equal to the same pipeline pulled on the host; and
+  tests/test_fault_tolerance.py's crash-and-resume at that size, the
+  resumed run bit-identical to an uninterrupted one.
+* `train_dense`: phi4-mini-3.8b trained at full width and depth
+  (Adafactor, remat, two microbatches) beside its operations bound.
+* `train_numerics`: float32 depth cuts of four families, the loss,
+  gradients and one update of each optimizer on the card against the
+  CPU.
 * the kernel line: every kernel with its time beside its bound.
 
 It then prints the `nvidia-smi` name and power limit and last
@@ -51,16 +61,25 @@ import importlib
 import json
 import math
 import os
+import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+# PyTorch's deterministic algorithms (the training phases) need cuBLAS's
+# workspace fixed before CUDA starts: 32 MiB, PyTorch's default for an
+# sm_90 card, so the other phases run as they would without it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.core import (PRICE_VECTORS, Trace, cost_foo,  # noqa: E402
                               exact_opt_uniform, exact_opt_uniform_sweep,
@@ -77,6 +96,11 @@ from repro_torch.online import (DollarGovernor, MetricsRegistry,  # noqa: E402
                                 WindowedAuditor)
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.engine import _grow, _prefix_key  # noqa: E402
+from repro_torch.train import (DataPipeline, DriverConfig,  # noqa: E402
+                               FailureInjector, OptimizerConfig,
+                               ShardedTokenDataset, TrainDriver,
+                               make_optimizer, make_train_step)
+from repro_torch.train.trainer import value_and_grad  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.evict_argmin import evict_argmin_cuda  # noqa: E402
 from repro_torch.kernels.interval_occupancy import (  # noqa: E402
@@ -2226,6 +2250,529 @@ def phase_families(seed: int, dev) -> None:
          xlstm_reference_gap=XLSTM_REFERENCE_GAP)
 
 
+# ---------------------------------------------------------------------------
+# training (slice 8): xlstm-125m trained and resumed, phi4-mini-3.8b at full
+# width, and float32 cuts of four families against the CPU
+
+TRAIN_ARCH, DENSE_ARCH = "xlstm-125m", "phi4-mini-3.8b"
+TRAIN_PARAMS, DENSE_PARAMS = 112_703_232, 4_450_618_368
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 40, 8, 128    # examples/train_100m.py
+TRAIN_PRICE = "gcs_internet"
+# at 128 tokens the reference's own xLSTM gradients are not finite (a
+# chunk's masked exp overflows, 0 * inf in the backward: ROADMAP queue 3,
+# item 8; `tools/xlstm_train_nan.py`); a second run at 64 tokens, where
+# they are, is the finite training run
+TRAIN_FINITE_SEQ = 64
+RESUME_STEPS, RESUME_EVERY, RESUME_FAIL = 12, 4, 9  # test_fault_tolerance.py
+RESUME_FROM = RESUME_FAIL // RESUME_EVERY * RESUME_EVERY
+DENSE_BATCH, DENSE_SEQ, DENSE_STEPS = 4, 512, 3
+# training tolerances, fixed before the first chip run:
+# (a) loss_fn against F.cross_entropy of forward's logits (an oracle only):
+#     xLSTM in bf16 with float32 logits, the same logits on both sides, so
+#     rel 1e-5; phi4 rel 2^-6 (bf16).
+# (b) train_numerics, float32 cuts on both sides, TF32 off, the card against
+#     the port on the CPU: the loss rel 2^-12, each gradient leaf's max |Δ|
+#     within 2^-12 of its max |g_cpu| (as families_numerics (b)); one
+#     update of each optimizer on the same parameters and the CPU's
+#     gradients: each leaf's max |Δ| within 2^-16 of its max |p| (the step
+#     is lr (1e-3) times an O(1) update: float32 roundings of p and of the
+#     update stay far inside).
+TRAIN_ORACLE_REL = 1e-5
+DENSE_ORACLE_REL = 2.0 ** -6
+TRAIN_CARD_VS_CPU_REL = 2.0 ** -12
+OPTIM_CARD_VS_CPU_REL = 2.0 ** -16
+# train_numerics' cuts: layers, batch, tokens (xLSTM at 64, see above; one
+# local-attention layer in RecurrentGemma's three)
+TRAIN_CUTS = {"phi4-mini-3.8b": (2, 2, 128), "qwen2-moe-a2.7b": (2, 2, 128),
+              "xlstm-125m": (2, 2, 64), "recurrentgemma-9b": (3, 2, 128)}
+# the update check runs on each leaf's first rows, up to 2^22 elements: on
+# whole leaves the three optimizers' float32 updates of the vocabulary
+# leaves and expert stacks (up to 1.05 B elements) took the card's 8-core
+# host 361 s for the four cuts; every layer matrix keeps over 1,000 rows,
+# so Adafactor's factored path still runs
+UPDATE_LEAF_ELEMENTS = 2 ** 22
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (CUBLAS_WORKSPACE_CONFIG is set
+    at import, before CUDA starts), restored on the way out. Their filling
+    of every new uninitialised tensor (a guard against reading one, which
+    this code does not do; the bit-identity checks would show it) is left
+    off: it cost ~9,000 launches a step."""
+    import torch.utils.deterministic as det
+    was = (torch.are_deterministic_algorithms_enabled(),
+           det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0])
+        det.fill_uninitialized_memory = was[1]
+
+
+def train_pipeline(B: int, S: int, vocab: int, price: str = TRAIN_PRICE,
+                   shards: int = 64, shard_tokens: int | None = None,
+                   capacity: int | None = None) -> tuple:
+    """examples/train_100m.py's billed data path: `shards` shards of
+    B*S*4 tokens in a store, read through a GDSF cache of 8*B*S*4*4 bytes."""
+    shard_tokens = shard_tokens or B * S * 4
+    store = ObjectStore(price)
+    ds = ShardedTokenDataset(store, num_shards=shards,
+                             shard_tokens=shard_tokens, vocab=vocab).register()
+    cache = EgressCache(store, capacity_bytes=capacity or 8 * B * S * 4 * 4,
+                        policy="gdsf")
+    return store, cache, DataPipeline(ds, cache, batch_size=B, seq_len=S)
+
+
+def data_checks(store, cache, steps: int, B: int, S: int, vocab: int,
+                **pipe_kw) -> dict:
+    """The data path's bill after `steps` batches: GETs = misses, the
+    store's dollars = the cache's, OPT ≤ the bill × (1 + 1e-5), and the bill
+    equal bit for bit to the same pipeline pulled on the host alone."""
+    bill = cache.meter.dollars
+    check(store.meter.gets == cache.misses > 0,
+          f"{store.meter.gets} GETs for {cache.misses} misses")
+    check(store.meter.dollars == bill,
+          f"store ${store.meter.dollars!r}, cache ${bill!r}")
+    audit = cache.audit()
+    check(audit.opt_dollars_lower <= bill * (1 + 1e-5),
+          f"OPT {audit.opt_dollars_lower} above the bill {bill}")
+    h_store, h_cache, h_pipe = train_pipeline(B, S, vocab, **pipe_kw)
+    for _ in range(steps):
+        h_pipe.next_batch()
+    check(h_cache.meter.dollars == bill
+          and (h_cache.hits, h_cache.misses) == (cache.hits, cache.misses),
+          f"host pipeline ${h_cache.meter.dollars!r}, training ${bill!r}")
+    return dict(dollars=bill, gets=store.meter.gets, hits=cache.hits,
+                misses=cache.misses, opt_dollars=[audit.opt_dollars_lower,
+                                                  audit.opt_dollars_upper],
+                dollar_regret=audit.dollar_regret, audit=audit.summary(),
+                host_pipeline_dollars=h_cache.meter.dollars)
+
+
+def first_batch(B: int, S: int, vocab: int, dev) -> dict:
+    """The pipeline's first batch, pulled on the host alone."""
+    _, _, pipe = train_pipeline(B, S, vocab)
+    return {k: torch.as_tensor(v, device=dev)
+            for k, v in pipe.next_batch().items()}
+
+
+def loss_oracle(model, params, batch: dict) -> dict:
+    """`loss_fn` against F.cross_entropy of `forward`'s logits."""
+    V = model.cfg.vocab_size
+    with torch.no_grad():
+        loss = float(model.loss_fn(params, batch))
+        logits = model.forward(params, batch)
+        xent = float(F.cross_entropy(logits[:, :-1].reshape(-1, V),
+                                     batch["labels"][:, 1:].reshape(-1)
+                                     .long()))
+    return dict(loss_fn=loss, cross_entropy=xent,
+                rel_gap=abs(loss - xent) / abs(xent))
+
+
+def step_profile(step, params, opt_state, batch: dict) -> dict:
+    """Where a train step's time goes: a torch.profiler window over one
+    step, recorded after a warm-up step (the profiler loses a trace's first
+    events; see `device_time`): device ms and events, host
+    `cudaLaunchKernel` calls, the top device ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    traces = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: traces.append(
+                     p.key_averages())) as prof:
+        for _ in range(2):              # warm-up step, recorded step
+            t0 = time.perf_counter()
+            loss, params, opt_state = step(params, opt_state, batch)
+            float(loss)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.step()
+    check(bool(traces), "step_profile: the profiler recorded no trace")
+    events = [e for e in traces[-1] if not e.key.startswith("ProfilerStep")]
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+    on_host = [e for e in events if e.device_type == DeviceType.CPU]
+    top = sorted(on_card, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    return dict(
+        profiled_wall_ms=wall * 1e3,
+        device_ms=sum(e.self_device_time_total for e in on_card) / 1e3
+        if on_card else "not measured",
+        device_events=sum(e.count for e in on_card),
+        cuda_launch_kernel_calls=sum(e.count for e in on_host
+                                     if e.key == "cudaLaunchKernel"),
+        top_device_ms=[[e.key[:80], e.count, e.self_device_time_total / 1e3]
+                       for e in top])
+
+
+def leaf_bits(tree) -> list:
+    return [t.reshape(-1).view(torch.uint8) for t in tree_leaves(tree)]
+
+
+def same_tree_bits(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(leaf_bits(a), leaf_bits(b)))
+
+
+def determinism_cost(model, params, batch: dict, steps: int = 4) -> dict:
+    """A step's cost with deterministic algorithms on and off, in turns
+    (off, on, on, off; `steps` steps each from the same start, CUDA
+    events), and whether two runs with them off gave the same bits."""
+    opt = make_optimizer(OptimizerConfig(name="adamw", lr=3e-4))
+    step = make_train_step(model, opt, microbatches=2)
+    ms, ends = {"off": [], "on": []}, []
+    for mode in ("off", "on", "on", "off"):
+        with (deterministic() if mode == "on" else contextlib.nullcontext()):
+            p, s = params, opt.init(params)
+            step(p, s, batch)                       # warm-up
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(steps):
+                _, p, s = step(p, s, batch)
+            end.record()
+            torch.cuda.synchronize()
+        ms[mode].append(start.elapsed_time(end) / steps)
+        if mode == "off":
+            ends.append((p, s))
+        del p, s
+    return dict(step_ms_deterministic_off=ms["off"],
+                step_ms_deterministic_on=ms["on"],
+                cost_ms=statistics.mean(ms["on"]) - statistics.mean(ms["off"]),
+                off_runs_same_bits=same_tree_bits(ends[0], ends[1]))
+
+
+def train_run(seed: int, dev, S: int, ckdir: str) -> dict:
+    """examples/train_100m.py on the card at xlstm-125m's full size, B x S
+    tokens a step: AdamW (lr 3e-4), two microbatches, remat, the billed
+    data path, TRAIN_STEPS steps through the driver with deterministic
+    algorithms on. Step 0's loss in (0.5, 2.5) ln V and equal to the
+    oracle; the data path's bill checked (`data_checks`)."""
+    B = TRAIN_BATCH
+    model, params, setup = serve_setup(seed, dev, TRAIN_ARCH)
+    cfg = model.cfg
+    V = cfg.vocab_size
+    check(setup["params"] == TRAIN_PARAMS,
+          f"{TRAIN_ARCH}: {setup['params']} parameters")
+    batch0 = first_batch(B, S, V, dev)
+    oracle = loss_oracle(model, params, batch0)
+    check(oracle["rel_gap"] <= TRAIN_ORACLE_REL,
+          f"loss_fn against the oracle: {oracle}")
+    opt = make_optimizer(OptimizerConfig(name="adamw", lr=3e-4))
+    step = make_train_step(model, opt, microbatches=2)
+    store, cache, pipe = train_pipeline(B, S, V)
+    driver = TrainDriver(DriverConfig(checkpoint_dir=ckdir,
+                                      checkpoint_every=100,
+                                      max_steps=TRAIN_STEPS),
+                         step, params, opt.init(params), pipe, device=dev)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with deterministic():
+        t0 = time.perf_counter()
+        out = driver.run()
+        run_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(launches == NO_LAUNCHES, f"training launched kernels: {launches}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = driver.losses
+    lnv = math.log(V)
+    check(math.isfinite(losses[0]) and 0.5 * lnv < losses[0] < 2.5 * lnv,
+          f"step 0's loss {losses[0]} outside (0.5, 2.5) ln V")
+    nonfinite = [i for i, x in enumerate(losses) if not math.isfinite(x)]
+    step_ms = statistics.median(driver.step_times[5:]) * 1e3
+    data = data_checks(store, cache, TRAIN_STEPS, B, S, V)
+    with deterministic():
+        prof = step_profile(step, driver.params, driver.opt_state,
+                            first_batch(B, S, V, dev))
+    report = dict(
+        batch=B, seq=S, tokens_per_step=B * S, steps=out["steps"],
+        loss_step_0=losses[0], loss_step_1=losses[1],
+        loss_last=losses[-1], first_nonfinite_step=nonfinite[0]
+        if nonfinite else None, oracle=oracle,
+        step_ms_median_5_on=step_ms, tokens_per_s=B * S / step_ms * 1e3,
+        run_s=run_s, peak_device_gib=peak_gib, launches=launches,
+        data=data, profile=prof,
+        device_busy_share=prof["device_ms"] / step_ms
+        if prof["device_ms"] != "not measured" else "not measured")
+    return dict(report=report, model=model, params=params, setup=setup,
+                nonfinite=nonfinite)
+
+
+def phase_train_xlstm(seed: int, dev) -> None:
+    """xlstm-125m trained on the card: the example's 8 x 128 tokens a step,
+    and 8 x 64, where the reference's gradients are finite (every loss
+    finite there); deterministic algorithms' cost on a step."""
+    t_phase = time.perf_counter()
+    runs = {}
+    for S in (TRAIN_SEQ, TRAIN_FINITE_SEQ):
+        with tempfile.TemporaryDirectory() as ckdir:
+            r = train_run(seed, dev, S, ckdir)
+        runs[S] = r
+        if S == TRAIN_FINITE_SEQ:
+            check(not r["nonfinite"],
+                  f"non-finite losses at steps {r['nonfinite']}")
+            cost = determinism_cost(r["model"], r["params"],
+                                    first_batch(TRAIN_BATCH, S,
+                                                r["model"].cfg.vocab_size,
+                                                dev))
+        setup = r["setup"]
+        del r["model"], r["params"]
+        torch.cuda.empty_cache()
+    emit("train_xlstm", arch=TRAIN_ARCH, params=setup["params"],
+         param_bytes=setup["param_bytes"], reduced=None,
+         optimizer="adamw lr 3e-4", microbatches=2, remat=True,
+         price=TRAIN_PRICE, shards=64, deterministic_algorithms=True,
+         example_run=runs[TRAIN_SEQ]["report"],
+         finite_run=runs[TRAIN_FINITE_SEQ]["report"],
+         determinism=cost, seconds=time.perf_counter() - t_phase)
+
+
+def phase_train_resume(seed: int, dev) -> None:
+    """tests/test_fault_tolerance.py's crash-and-resume at xlstm-125m's
+    full size on the card: the test's data (2 x 16 tokens, 4 shards of
+    2048 tokens, s3_internet) and AdamW (lr 1e-3), 12 steps, a checkpoint
+    every 4, a failure injected at step 9 and a fresh driver resumed from
+    step 8: final loss, every parameter and optimizer-state leaf
+    bit-identical to an uninterrupted run, and two uninterrupted runs
+    alike; deterministic algorithms on. Checkpoints go to a temporary
+    directory, removed afterwards."""
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    model = get_model(cfg)
+    pipe_kw = dict(price="s3_internet", shards=4, shard_tokens=2048,
+                   capacity=4 * 2048 * 4)
+
+    def driver(path, params):
+        opt = make_optimizer(OptimizerConfig(name="adamw", lr=1e-3))
+        _, _, pipe = train_pipeline(2, 16, cfg.vocab_size, **pipe_kw)
+        return TrainDriver(
+            DriverConfig(checkpoint_dir=str(path), max_steps=RESUME_STEPS,
+                         checkpoint_every=RESUME_EVERY),
+            make_train_step(model, opt), params, opt.init(params), pipe,
+            device=dev)
+
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as root, deterministic():
+        root = pathlib.Path(root)
+        runs = []
+        for name in ("ref", "ref2"):
+            d = driver(root / name, model.init(seed, device=dev))
+            out = d.run()
+            runs.append((out, d.params, d.opt_state))
+            ck_bytes = sum(f.stat().st_size for f in
+                           (root / name / f"step_{RESUME_STEPS:08d}")
+                           .iterdir())
+            shutil.rmtree(root / name)
+            del d
+        crash = driver(root / "crash", model.init(seed, device=dev))
+        crash.failure = FailureInjector(fail_at=(RESUME_FAIL,))
+        try:
+            crash.run()
+            raise AssertionError("the injected failure did not fire")
+        except RuntimeError as e:
+            check("injected node failure" in str(e), str(e))
+        del crash
+        t0 = time.perf_counter()
+        resumed = driver(root / "crash", model.init(seed, device=dev))
+        check(resumed.resume() and resumed.step == RESUME_FROM,
+              f"resumed at step {resumed.step}")
+        resume_s = time.perf_counter() - t0
+        out = resumed.run()
+    launches = ops.launch_counts()
+    check(launches == NO_LAUNCHES, f"training launched kernels: {launches}")
+    (ref_out, ref_p, ref_s), (ref2_out, ref2_p, ref2_s) = runs
+    check(ref_out["final_loss"] == ref2_out["final_loss"]
+          and same_tree_bits([ref_p, ref_s], [ref2_p, ref2_s]),
+          "two uninterrupted runs differ")
+    check(out["steps"] == ref_out["steps"] == RESUME_STEPS
+          and out["final_loss"] == ref_out["final_loss"]
+          and same_tree_bits([ref_p, ref_s],
+                             [resumed.params, resumed.opt_state]),
+          "the resumed run is not bit-identical to the uninterrupted one")
+    leaves = tree_leaves([ref_p, ref_s])
+    emit("train_resume", arch=TRAIN_ARCH,
+         params=sum(t.numel() for t in tree_leaves(ref_p)), reduced=None,
+         steps=RESUME_STEPS, checkpoint_every=RESUME_EVERY,
+         failure_at=RESUME_FAIL, resumed_from=RESUME_FROM,
+         batch=2, seq=16, deterministic_algorithms=True,
+         final_loss=out["final_loss"], resumed_losses=resumed.losses,
+         leaves=len(leaves), bit_identical=True,
+         uninterrupted_runs_equal=True, checkpoint_bytes=ck_bytes,
+         resume_load_s=resume_s, launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    del runs, ref_p, ref_s, ref2_p, ref2_s, resumed
+    torch.cuda.empty_cache()
+
+
+def dense_train_bounds(cfg, tokens: int, S: int) -> dict:
+    """A train step's operations, as the reference computes them: the bf16
+    products 8 x matmul_params x tokens (forward 2, remat's second forward
+    2, backward 4) and causal attention 4 x forward's; the float32
+    unembedding 3 x 2 x tokens x d x V (forward and two backward
+    products)."""
+    attn = 2 * cfg.num_layers * cfg.num_heads * cfg.hd * tokens * (S + 1)
+    bf16 = 8 * matmul_params(cfg) * tokens + 4 * attn
+    f32 = 3 * 2 * tokens * cfg.d_model * cfg.vocab_size
+    return dict(bf16_flops=bf16, f32_flops=f32,
+                bound_ms=(bf16 / BF16_PEAK_FLOPS + f32 / F32_PEAK_FLOPS) * 1e3)
+
+
+def phase_train_dense(seed: int, dev) -> None:
+    """phi4-mini-3.8b at full width and depth trained on the card:
+    Adafactor (the reference's optimizer where float32 Adam moments do not
+    fit), remat, two microbatches, a global batch of 4 x 512 tokens from
+    the billed pipeline, DENSE_STEPS steps (the first a warm-up); step 0's
+    loss finite and equal to the oracle; step ms, device ms and launches
+    beside the operations bound; peak memory."""
+    t_phase = time.perf_counter()
+    model, params, setup = serve_setup(seed, dev, DENSE_ARCH)
+    cfg = model.cfg
+    check(setup["params"] == DENSE_PARAMS,
+          f"{DENSE_ARCH}: {setup['params']} parameters")
+    B, S, V = DENSE_BATCH, DENSE_SEQ, cfg.vocab_size
+    oracle = loss_oracle(model, params, first_batch(B, S, V, dev))
+    check(oracle["rel_gap"] <= DENSE_ORACLE_REL,
+          f"loss_fn against the oracle: {oracle}")
+    opt = make_optimizer(OptimizerConfig(name="adafactor"))
+    step = make_train_step(model, opt, microbatches=2)
+    store, cache, pipe = train_pipeline(B, S, V)
+    opt_state = opt.init(params)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(DENSE_STEPS):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in pipe.next_batch().items()}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, params, opt_state = step(params, opt_state, batch)
+        end.record()
+        losses.append(float(loss))
+        step_ms.append(start.elapsed_time(end))
+    launches = ops.launch_counts()
+    check(launches == NO_LAUNCHES, f"training launched kernels: {launches}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(abs(losses[0] - oracle["loss_fn"]) <= DENSE_ORACLE_REL
+          * abs(oracle["loss_fn"]),
+          f"step 0's loss {losses[0]}, loss_fn {oracle['loss_fn']}")
+    data = data_checks(store, cache, DENSE_STEPS, B, S, V)
+    prof = step_profile(step, params, opt_state, batch)
+    bounds = dense_train_bounds(cfg, B * S, S)
+    measured = statistics.median(step_ms[1:])
+    emit("train_dense", arch=DENSE_ARCH, params=setup["params"],
+         param_bytes=setup["param_bytes"], reduced=None,
+         optimizer="adafactor lr 3e-4", microbatches=2, remat=True,
+         batch=B, seq=S, tokens_per_step=B * S, steps=DENSE_STEPS,
+         losses=losses, oracle=oracle, step_ms=step_ms,
+         step_ms_after_warmup=measured,
+         tokens_per_s=B * S / measured * 1e3, peak_device_gib=peak_gib,
+         **bounds, bound_by="operations (bf16 at 989 TFLOP/s, float32 at "
+                            "67 TFLOP/s)",
+         bound_share=bounds["bound_ms"] / measured, profile=prof,
+         device_busy_share=prof["device_ms"] / measured
+         if prof["device_ms"] != "not measured" else "not measured",
+         data=data, launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    del params, opt_state, batch
+    torch.cuda.empty_cache()
+
+
+def train_cut_vs_cpu(seed: int, arch: str, dev) -> dict:
+    """One float32 depth cut at full width, TF32 off, its weights drawn on
+    the card and copied to the CPU: the loss and every gradient on the card
+    against the port on the CPU, then one update of each optimizer from
+    the same parameters and the CPU's gradients, leaf by leaf (each leaf's
+    update needs only its own state)."""
+    layers, B, S = TRAIN_CUTS[arch]
+    cut = dataclasses.replace(get_config(arch), num_layers=layers,
+                              param_dtype=torch.float32)
+    model = get_model(cut)
+    card = model.init(seed + 5, device=dev)
+    host = tree_map(lambda t: t.cpu(), card)
+    rng = np.random.default_rng(seed + 5)
+    toks = torch.as_tensor(rng.integers(0, cut.vocab_size, (B, S)))
+    batch = {"tokens": toks, "labels": toks}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        c_loss, c_grads = value_and_grad(
+            lambda p, b: model.loss_fn(p, b), card,
+            {k: v.to(dev) for k, v in batch.items()})
+        float(c_loss)
+        t1 = time.perf_counter()
+        h_loss, h_grads = value_and_grad(lambda p, b: model.loss_fn(p, b),
+                                         host, batch)
+        t2 = time.perf_counter()
+        loss_gap = abs(float(c_loss) - float(h_loss)) / abs(float(h_loss))
+        grad_gaps = [float((c.cpu() - h).abs().max() / h.abs().max())
+                     if float(h.abs().max()) > 0 else float(c.abs().max())
+                     for c, h in zip(tree_leaves(c_grads),
+                                     tree_leaves(h_grads))]
+        del c_grads
+        check(loss_gap <= TRAIN_CARD_VS_CPU_REL,
+              f"{arch}: loss card against CPU {loss_gap}")
+        check(max(grad_gaps) <= TRAIN_CARD_VS_CPU_REL,
+              f"{arch}: gradients card against CPU {max(grad_gaps)}")
+        optim_gaps = {}
+        leaves = [(p[:rows], g[:rows]) for p, g in
+                  zip(tree_leaves(host), tree_leaves(h_grads))
+                  for rows in [max(1, UPDATE_LEAF_ELEMENTS * p.shape[0]
+                                   // p.numel())]]
+        for name in ("adamw", "adafactor", "sgd"):
+            opt = make_optimizer(OptimizerConfig(name=name, lr=1e-3))
+            gaps = []
+            for p, g in leaves:
+                new = [opt.update([g.to(d)], opt.init([p.to(d)]),
+                                  [p.to(d)])[0][0].cpu() for d in (dev, "cpu")]
+                gaps.append(float((new[0] - new[1]).abs().max()
+                                  / p.abs().max()))
+            optim_gaps[name] = max(gaps)
+            check(max(gaps) <= OPTIM_CARD_VS_CPU_REL,
+                  f"{arch}: {name} update card against CPU {max(gaps)}")
+        t3 = time.perf_counter()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del card, host
+    torch.cuda.empty_cache()
+    return dict(layers=layers, batch=B, tokens=S, dtype="float32",
+                tf32=False, loss=float(h_loss), rel_gap_loss=loss_gap,
+                max_rel_gap_grad=max(grad_gaps), grad_leaves=len(grad_gaps),
+                max_rel_gap_update=optim_gaps,
+                update_elements=sum(p.numel() for p, _ in leaves),
+                card_grad_s=t1 - t0, cpu_grad_s=t2 - t1, update_s=t3 - t2)
+
+
+def phase_train_numerics(seed: int, dev) -> None:
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    cuts = {arch: train_cut_vs_cpu(seed, arch, dev) for arch in TRAIN_CUTS}
+    launches = ops.launch_counts()
+    check(launches == NO_LAUNCHES, f"training launched kernels: {launches}")
+    emit("train_numerics", **cuts, launches=launches,
+         reduced=dict(update_leaf_elements=UPDATE_LEAF_ELEMENTS,
+                      why="the update check on each leaf's first rows: "
+                          "whole vocabulary leaves and expert stacks took "
+                          "the 8-core host 361 s"),
+         tolerance_rel={"loss": TRAIN_CARD_VS_CPU_REL,
+                        "grad": TRAIN_CARD_VS_CPU_REL,
+                        "update": OPTIM_CARD_VS_CPU_REL},
+         seconds=time.perf_counter() - t_phase)
+
+
+def phase_training(seed: int, dev) -> None:
+    """The training slice: train_xlstm, train_resume, train_dense,
+    train_numerics, each freeing its weights before the next."""
+    phase_train_xlstm(seed, dev)
+    phase_train_resume(seed, dev)
+    phase_train_dense(seed, dev)
+    phase_train_numerics(seed, dev)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -2253,6 +2800,7 @@ def main() -> int:
     phase_serving(args.seed, dev)
     phase_moe_serving(args.seed, dev)
     phase_families(args.seed, dev)
+    phase_training(args.seed, dev)
     # each kernel's launches on its own path, counted from 0 around it
     launches = {"evict_argmin": full["launches"]["evict_argmin"],
                 "next_use": full["launches"]["next_use"],

@@ -8,7 +8,10 @@ reference's operations in its order and with its casts: the attention
 logits are formed in the parameter dtype and only then taken to float32,
 `rms_norm` multiplies the cast-back result by its weight in the parameter
 dtype, the rotary products promote to float32 and are cast back. Matrix
-products go to `torch.matmul`, as the reference leaves them to XLA.
+products go to `torch.matmul`, as the reference leaves them to XLA. The
+training loss `softmax_xent` and the per-layer remat `checkpoint_layer`
+(`torch.utils.checkpoint` in place of `jax.checkpoint`) are the
+reference's.
 
 Sharding hints (`constrain`, `set_activation_mesh`, `tp_divides`) keep
 their names and do nothing yet: the port runs on one card.
@@ -21,6 +24,7 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 DEFAULT_DTYPE = torch.bfloat16
 
@@ -120,6 +124,20 @@ def tree_map(fn, tree: Any) -> Any:
     if isinstance(tree, (list, tuple)) and not isinstance(tree, ParamDef):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_zip_map(fn, tree: Any, *others: Any) -> Any:
+    """`fn(leaf, *others' entries at the same place)` over the leaves of
+    `tree`, into its structure: the others are read by the same keys and
+    indices (their insertion order does not matter), and what they hold
+    below `tree`'s leaves is handed to `fn` whole."""
+    if isinstance(tree, dict):
+        return {k: tree_zip_map(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_zip_map(fn, v, *(o[i] for o in others))
+                          for i, v in enumerate(tree))
+    return fn(tree, *others)
 
 
 def tree_leaves(tree: Any) -> list:
@@ -385,3 +403,22 @@ def ffn(x, w1, w3, w2, act="swiglu"):
     else:
         h = F.gelu(x @ w1, approximate="tanh")   # jax.nn.gelu's default
     return h @ w2
+
+
+def softmax_xent(logits, labels, vocab: int):
+    """Mean cross-entropy; logits (B,S,V) f32, labels (B,S) int.
+
+    The gold logit is taken with a masked sum, as the reference takes it
+    (not `gather`): the sum rounds as the reference's does, and its
+    gradient is a dense `where`, with no scatter.
+    """
+    logz = torch.logsumexp(logits, -1)
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.where(iota == labels[..., None], logits, 0.0).sum(-1)
+    return (logz - gold).mean()
+
+
+def checkpoint_layer(fn, *args):
+    """`fn(*args)` with its activations recomputed in the backward pass
+    instead of kept: the reference's per-layer `jax.checkpoint`."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)

@@ -2,15 +2,18 @@
 
 The port of `repro.models.registry`. Every family exposes:
   param_defs / init                     — parameters
-  forward(params, batch)                — full-sequence logits
+  loss_fn(params, batch, remat=True)    — training loss (per-layer remat)
+  forward(params, batch, remat=False)   — full-sequence logits
   prefill(params, batch) -> (logits, caches)
   decode_step(params, token, caches, position) — new caches; the caches
                                           given are left unchanged
+  train_inputs(batch_size, seq_len)     — the training batch's shapes
   prefill_inputs(batch_size, seq_len)   — the prefill batch's shapes
   abstract_caches(batch_size, max_seq)  — the decode state's shapes
 
-All six families are ported. Training (`loss_fn`, `train_inputs`) is
-ROADMAP queue 1, item 8.
+All six families are ported, for serving and for training
+(`repro_torch.train`). The reference's `abstract` and `axes` wait for
+sharding (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -54,8 +57,11 @@ class ModelApi:
                            device)
 
     # ---- steps ------------------------------------------------------------
-    def forward(self, params, batch):
-        return self.mod.forward(self.cfg, params, batch)
+    def loss_fn(self, params, batch, remat: bool = True):
+        return self.mod.loss_fn(self.cfg, params, batch, remat=remat)
+
+    def forward(self, params, batch, remat: bool = False):
+        return self.mod.forward(self.cfg, params, batch, remat=remat)
 
     def prefill(self, params, batch):
         return self.mod.prefill(self.cfg, params, batch)
@@ -64,6 +70,23 @@ class ModelApi:
         return self.mod.decode_step(self.cfg, params, token, caches, position)
 
     # ---- inputs ------------------------------------------------------------
+    def train_inputs(self, batch_size: int, seq_len: int):
+        """Meta tensors of a training batch: tokens and labels, and the vlm
+        family's vision embeddings or whisper's min(seq_len, 4096) frames
+        (the stub frontends)."""
+        cfg = self.cfg
+        specs = {"tokens": _meta((batch_size, seq_len), torch.int32),
+                 "labels": _meta((batch_size, seq_len), torch.int32)}
+        if cfg.family == "vlm":
+            specs["vision_embeds"] = _meta(
+                (batch_size, cfg.num_vision_tokens, cfg.d_model),
+                cfg.param_dtype)
+        if cfg.family == "encdec":
+            specs["frames"] = _meta(
+                (batch_size, min(seq_len, 4096), cfg.d_model),
+                cfg.param_dtype)
+        return specs
+
     def prefill_inputs(self, batch_size: int, seq_len: int):
         """Meta tensors of a prefill batch: tokens, and the vlm family's
         vision embeddings or whisper's 1500 frames (the stub frontends)."""

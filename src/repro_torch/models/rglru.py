@@ -22,11 +22,12 @@ import torch
 import torch.nn.functional as F
 
 from .common import (ArchConfig, ParamDef, apply_rope, associative_scan,
-                     attention, chunked_attention, ffn, linear_recurrence,
-                     rms_norm, softplus)
+                     attention, checkpoint_layer, chunked_attention, ffn,
+                     linear_recurrence, rms_norm, softmax_xent, softplus)
 from .transformer import _logits, _positions, _write
 
-__all__ = ["param_defs", "prefill", "decode_step", "forward", "init_caches"]
+__all__ = ["param_defs", "prefill", "decode_step", "forward", "loss_fn",
+           "init_caches"]
 
 _C = 8.0
 _FULL_ATTN_LIMIT = 2048 * 2048
@@ -195,15 +196,26 @@ def _layer(cfg, l, p, x, positions, q_offset=0, cache=None):
     return x, new_cache
 
 
-def forward(cfg: ArchConfig, params, batch):
-    """Full-sequence forward -> logits (B, S, V) in f32."""
+def forward(cfg: ArchConfig, params, batch, *, remat: bool = True):
+    """Full-sequence forward -> logits (B, S, V) in f32. With `remat`, each
+    layer's activations are recomputed in the backward pass."""
     x = params["embed"][batch["tokens"]].to(cfg.param_dtype)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
     for l, p in enumerate(params["layers"]):
-        x, _ = _layer(cfg, l, p, x, positions)
+        if remat:
+            x = checkpoint_layer(
+                lambda p_, x_, _l=l: _layer(cfg, _l, p_, x_, positions)[0],
+                p, x)
+        else:
+            x, _ = _layer(cfg, l, p, x, positions)
     x = rms_norm(x, params["ln_f"])
     return _logits(params, x)
+
+
+def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True):
+    logits = forward(cfg, params, batch, remat=remat)
+    return softmax_xent(logits[:, :-1], batch["labels"][:, 1:], cfg.vocab_size)
 
 
 def init_caches(cfg: ArchConfig, B: int, max_seq: int, dtype, device=None):

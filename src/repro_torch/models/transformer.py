@@ -4,8 +4,10 @@ The port of `repro.models.transformer` for chatglm3-6b, phi4-mini-3.8b,
 mistral-nemo-12b, gemma3-4b (5:1 local:global windows), qwen2-moe-a2.7b,
 kimi-k2-1t-a32b (MoE layers from `moe.py`) and the qwen2-vl-72b backbone
 (M-RoPE and a stub vision prefix). Layers are per-layer parameter dicts
-applied in a Python loop, as in the reference. The stacked (scanned)
-layout raises (ROADMAP queue 1, item 10).
+applied in a Python loop, as in the reference, each under
+`checkpoint_layer` where the reference has `jax.checkpoint` (`forward`'s
+`remat`); `loss_fn` is the reference's. The stacked (scanned) layout
+raises (ROADMAP queue 1, item 10).
 
 Decode never writes into the caches it is given: each new key and value
 goes into a new cache, as the reference's `dynamic_update_slice` builds a
@@ -18,7 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from .common import (ArchConfig, ParamDef, apply_mrope, apply_rope,
-                     attention, chunked_attention, ffn, rms_norm)
+                     attention, chunked_attention, ffn, rms_norm,
+                     checkpoint_layer, softmax_xent)
 from .moe import moe_ffn_apply, moe_ffn_defs
 
 # attention score materialization is capped; larger S*K uses the chunked
@@ -211,15 +214,27 @@ def _logits(params, x):
     return x.to(torch.float32) @ params["unembed"].to(torch.float32)
 
 
-def forward(cfg: ArchConfig, params, batch):
-    """Full-sequence forward -> logits (B, S, V) in f32."""
+def forward(cfg: ArchConfig, params, batch, *, remat: bool = True):
+    """Full-sequence forward -> logits (B, S, V) in f32. With `remat`, each
+    layer's activations are recomputed in the backward pass."""
     x = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     positions = _seq_positions(cfg, B, S, x.device)
     for l, p in enumerate(params["layers"]):
-        x, _ = _block(cfg, p, x, positions, layer=l)
+        if remat:
+            x = checkpoint_layer(
+                lambda p_, x_, pos_, _l=l: _block(cfg, p_, x_, pos_,
+                                                  layer=_l)[0],
+                p, x, positions)
+        else:
+            x, _ = _block(cfg, p, x, positions, layer=l)
     x = rms_norm(x, params["ln_f"])
     return _logits(params, x)
+
+
+def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True):
+    logits = forward(cfg, params, batch, remat=remat)
+    return softmax_xent(logits[:, :-1], batch["labels"][:, 1:], cfg.vocab_size)
 
 
 def prefill(cfg: ArchConfig, params, batch):

@@ -17,10 +17,12 @@ from __future__ import annotations
 import torch
 
 from .common import (ArchConfig, ParamDef, apply_rope, attention,
-                     chunked_attention, ffn, rms_norm)
+                     checkpoint_layer, chunked_attention, ffn, rms_norm,
+                     softmax_xent)
 from .transformer import _logits, _write
 
-__all__ = ["param_defs", "prefill", "decode_step", "forward", "encode"]
+__all__ = ["param_defs", "prefill", "decode_step", "forward", "loss_fn",
+           "encode"]
 
 _FULL_ATTN_LIMIT = 2048 * 2048
 
@@ -128,15 +130,27 @@ def _decoder_block(cfg, p, x, enc, q_offset=0, self_cache=None,
     return x, new_self, cross_cache
 
 
-def forward(cfg: ArchConfig, params, batch):
+def forward(cfg: ArchConfig, params, batch, *, remat: bool = True):
     """Full forward: frames (B, S_enc, d) + tokens (B, S_dec) -> logits
-    (B, S_dec, V) in f32."""
+    (B, S_dec, V) in f32. With `remat`, each decoder layer's activations
+    are recomputed in the backward pass (the encoder's are kept, as in the
+    reference)."""
     enc = encode(cfg, params, batch["frames"])
     x = params["embed"][batch["tokens"]].to(cfg.param_dtype)
     for p in params["decoder"]:
-        x, _, _ = _decoder_block(cfg, p, x, enc)
+        if remat:
+            x = checkpoint_layer(
+                lambda p_, x_, e_: _decoder_block(cfg, p_, x_, e_)[0],
+                p, x, enc)
+        else:
+            x, _, _ = _decoder_block(cfg, p, x, enc)
     x = rms_norm(x, params["ln_f"])
     return _logits(params, x)
+
+
+def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True):
+    logits = forward(cfg, params, batch, remat=remat)
+    return softmax_xent(logits[:, :-1], batch["labels"][:, 1:], cfg.vocab_size)
 
 
 def prefill(cfg: ArchConfig, params, batch):

@@ -23,10 +23,12 @@ import torch
 import torch.nn.functional as F
 
 from .common import (ArchConfig, ParamDef, associative_scan,
-                     linear_recurrence, log_sigmoid, rms_norm)
+                     checkpoint_layer, linear_recurrence, log_sigmoid,
+                     rms_norm, softmax_xent)
 from .transformer import _logits
 
-__all__ = ["param_defs", "prefill", "decode_step", "forward", "init_state"]
+__all__ = ["param_defs", "prefill", "decode_step", "forward", "loss_fn",
+           "init_state"]
 
 
 def _mlstm_defs(cfg: ArchConfig) -> dict:
@@ -76,6 +78,18 @@ def param_defs(cfg: ArchConfig) -> dict:
 _MLSTM_CHUNK = 256
 
 
+def _running_max(x):
+    """The running max along dim 1. Where a gradient is taken, the way
+    `jax.lax.cummax` differentiates it: a scan of `maximum` over the
+    reference's tree, whose backward splits the cotangent evenly between
+    equal operands (torch.cummax's gives all of it to one index). The
+    values are the same either way."""
+    if not x.requires_grad:
+        return torch.cummax(x, dim=1).values
+    return associative_scan(lambda l, r: (torch.maximum(l[0], r[0]),),
+                            (x,), dim=1)[0]
+
+
 def _mlstm_chunk(C, n, m, qb, kb, vb, fb, ib):
     """One chunk of the chunkwise-parallel form: intra-chunk decay-masked
     attention plus the carried state's contribution, and the state at the
@@ -87,7 +101,7 @@ def _mlstm_chunk(C, n, m, qb, kb, vb, fb, ib):
     b = torch.cumsum(fb, dim=1)                 # (B, L, H) inclusive
     Ft = b[:, -1]                               # (B, H) chunk decay total
     # stabilizers
-    runmax = torch.cummax(ib - b, dim=1).values          # (B, L, H)
+    runmax = _running_max(ib - b)                        # (B, L, H)
     m_i = torch.maximum(b + m[:, None], b + runmax)      # (B, L, H)
     # intra-chunk: D_ij = b_i - b_j + i_j - m_i  (j <= i)
     Dm = (b[:, :, None] - b[:, None, :] + ib[:, None, :]
@@ -227,13 +241,23 @@ def _apply_layer(cfg, p, x):
     return x + _slstm_scan(cfg, p["kind_slstm"], x)
 
 
-def forward(cfg: ArchConfig, params, batch):
-    """Full-sequence forward -> logits (B, S, V) in f32."""
+def forward(cfg: ArchConfig, params, batch, *, remat: bool = True):
+    """Full-sequence forward -> logits (B, S, V) in f32. With `remat`, each
+    layer's activations are recomputed in the backward pass."""
     x = params["embed"][batch["tokens"]].to(cfg.param_dtype)
     for p in params["layers"]:
-        x = _apply_layer(cfg, p, x)
+        if remat:
+            x = checkpoint_layer(lambda p_, x_: _apply_layer(cfg, p_, x_),
+                                 p, x)
+        else:
+            x = _apply_layer(cfg, p, x)
     x = rms_norm(x, params["ln_f"])
     return _logits(params, x)
+
+
+def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True):
+    logits = forward(cfg, params, batch, remat=remat)
+    return softmax_xent(logits[:, :-1], batch["labels"][:, 1:], cfg.vocab_size)
 
 
 def init_state(cfg: ArchConfig, B: int, dtype, device=None):
@@ -260,7 +284,7 @@ def init_state(cfg: ArchConfig, B: int, dtype, device=None):
 def prefill(cfg: ArchConfig, params, batch):
     """Stateless stress prefill, as the reference's: forward for logits +
     a fresh decode state (which does not see the prompt)."""
-    logits = forward(cfg, params, batch)
+    logits = forward(cfg, params, batch, remat=False)
     tokens = batch["tokens"]
     return logits[:, -1], init_state(cfg, tokens.shape[0], cfg.param_dtype,
                                      tokens.device)

@@ -25,7 +25,10 @@ def test_import_loads_no_jax_and_no_repro():
             "repro_torch.online.scenario, repro_torch.fleet, "
             "repro_torch.models.moe, repro_torch.models.whisper, "
             "repro_torch.models.rglru, repro_torch.models.xlstm, "
-            "repro_torch.serve\n"
+            "repro_torch.serve, repro_torch.train, "
+            "repro_torch.train.optim, repro_torch.train.trainer, "
+            "repro_torch.train.checkpoint, repro_torch.train.data, "
+            "repro_torch.train.driver\n"
             "bad = sorted(m for m in sys.modules if m.startswith('jax') or "
             "m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\n"

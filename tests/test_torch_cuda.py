@@ -1,7 +1,8 @@
-"""The port's CUDA kernels, its replay and its serving engine on the card,
-against their plain PyTorch versions and the CPU. Every test is marked
-`cuda` and skips where torch sees no card. This file imports no JAX, so it
-runs on a machine that has only the port's dependencies:
+"""The port's CUDA kernels, its replay, its serving engine and its training
+step on the card, against their plain PyTorch versions and the CPU. Every
+test is marked `cuda` and skips where torch sees no card. This file
+imports no JAX, so it runs on a machine that has only the port's
+dependencies:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
@@ -558,3 +559,107 @@ def test_family_smoke_on_card_matches_cpu(cuda, arch):
     assert len(got["cuda"]) == len(got["cpu"])
     for on_card, on_host in zip(got["cuda"], got["cpu"]):
         np.testing.assert_allclose(on_card, on_host, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# training: one step on the card against the CPU, and crash-and-resume
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "xlstm-125m"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """A smoke config in float32 with TF32 off: the loss and every
+    gradient leaf on the card against the CPU within 2^-12 (of the loss,
+    of the leaf's max |g|), then one update of each optimizer from the same
+    parameters and the CPU's gradients within 2^-16 of the leaf's max |p|
+    (chip_smoke.py's train_numerics tolerances)."""
+    import dataclasses
+    from repro_torch.train import OptimizerConfig, make_optimizer
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.models.common import tree_leaves
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              param_dtype=torch.float32)
+    model = get_model(cfg)
+    host = model.init(0, device="cpu")
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)))
+    batch = {"tokens": toks, "labels": toks}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = {}
+        for dev in ("cpu", "cuda"):
+            params = tree_map(lambda t: t.to(dev), host)
+            got[dev] = value_and_grad(
+                lambda p, b: model.loss_fn(p, b), params,
+                {k: v.to(dev) for k, v in batch.items()})
+        (hl, hg), (cl, cg) = got["cpu"], got["cuda"]
+        assert abs(float(cl) - float(hl)) <= 2.0 ** -12 * abs(float(hl))
+        for c, h in zip(tree_leaves(cg), tree_leaves(hg)):
+            assert float((c.cpu() - h).abs().max()) <= \
+                2.0 ** -12 * float(h.abs().max())
+        for name in ("adamw", "adafactor", "sgd"):
+            opt = make_optimizer(OptimizerConfig(name=name, lr=1e-3))
+            new = {}
+            for dev in ("cpu", "cuda"):
+                p = tree_map(lambda t: t.to(dev), host)
+                g = tree_map(lambda t: t.to(dev), hg)
+                new[dev], _ = opt.update(g, opt.init(p), p)
+            for c, h, p in zip(tree_leaves(new["cuda"]),
+                               tree_leaves(new["cpu"]), tree_leaves(host)):
+                assert float((c.cpu() - h).abs().max()) <= \
+                    2.0 ** -16 * float(p.abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_train_crash_resume_on_card_is_bit_identical(cuda, tmp_path,
+                                                      monkeypatch):
+    """tests/test_fault_tolerance.py's crash-and-resume at the smoke config
+    on the card, with PyTorch's deterministic algorithms on: the resumed
+    run's final loss, parameters and optimizer state equal an
+    uninterrupted run's bit for bit."""
+    from repro_torch.egress import EgressCache, ObjectStore
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train import (DataPipeline, DriverConfig,
+                                   FailureInjector, OptimizerConfig,
+                                   ShardedTokenDataset, TrainDriver,
+                                   make_optimizer, make_train_step)
+
+    def setup(path):
+        cfg = get_config("xlstm-125m", smoke=True)
+        model = get_model(cfg)
+        opt = make_optimizer(OptimizerConfig(name="adamw", lr=1e-3))
+        params = model.init(0, device=cuda)
+        store = ObjectStore("s3_internet")
+        ds = ShardedTokenDataset(store, num_shards=4, shard_tokens=2048,
+                                 vocab=cfg.vocab_size).register()
+        cache = EgressCache(store, capacity_bytes=4 * 2048 * 4,
+                            policy="gdsf")
+        return TrainDriver(
+            DriverConfig(checkpoint_dir=str(path), max_steps=12,
+                         checkpoint_every=4),
+            make_train_step(model, opt), params, opt.init(params),
+            DataPipeline(ds, cache, batch_size=2, seq_len=16), device=cuda)
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        ref = setup(tmp_path / "ref")
+        ref_out = ref.run()
+        crash = setup(tmp_path / "crash")
+        crash.failure = FailureInjector(fail_at=(9,))
+        with pytest.raises(RuntimeError, match="injected node failure"):
+            crash.run()
+        resumed = setup(tmp_path / "crash")
+        assert resumed.resume() and resumed.step == 8
+        out = resumed.run()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert out["steps"] == ref_out["steps"] == 12
+    assert out["final_loss"] == ref_out["final_loss"]
+    for a, b in zip(tree_leaves([ref.params, ref.opt_state]),
+                    tree_leaves([resumed.params, resumed.opt_state])):
+        assert a.device.type == "cuda" and b.device.type == "cuda"
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))

@@ -51,6 +51,12 @@ def test_fleet_governance_torch():
     assert "fleet-mode engine" in out and "edge2" in out
 
 
+def test_train_100m_torch():
+    out = _run("train_100m_torch.py", "--smoke", "--steps", "4")
+    assert "on cpu" in out and "trained 4 steps" in out
+    assert "[egress audit]" in out and "store meter" in out
+
+
 @pytest.mark.parametrize("name", ["policy_audit_torch.py",
                                   "serve_with_egress_cache_torch.py"])
 def test_earlier_examples_run_on_the_cpu(name):

@@ -1,7 +1,8 @@
-"""The port's copies of the host layers (obs, egress, online, fleet, configs)
-against their originals: the source is the same program once the
-`repro.` imports read `repro_torch.` (compared by AST), and the same
-access stream through either package bills, hits and audits alike."""
+"""The port's copies of the host layers (obs, egress, online, fleet, configs,
+the training data pipeline) against their originals: the source is the
+same program once the `repro.` imports read `repro_torch.` (compared by
+AST), and the same access stream through either package bills, hits and
+audits alike."""
 import ast
 import dataclasses
 import pathlib
@@ -29,6 +30,7 @@ COPIES = [f"{pkg}/{name}.py" for pkg, names in [
                  "mistral_nemo_12b", "phi4_mini_3_8b", "qwen2_moe_a2_7b",
                  "qwen2_vl_72b", "recurrentgemma_9b", "whisper_large_v3",
                  "xlstm_125m"]),
+    ("train", ["data"]),
 ] for name in names]
 
 

@@ -1,9 +1,7 @@
 """tests/test_smoke_archs.py on the port: every architecture's smoke
-config, one forward and a prefill followed by decode steps on the CPU,
-shapes and finiteness asserted, with the port's own weights (drawn from a
-torch.Generator). The training checks wait for the port's `loss_fn`
-(ROADMAP queue 1, item 8); the cross-entropy sanity here is computed from
-the forward's logits as the reference's `softmax_xent` computes it."""
+config, one forward with its loss, one gradient step, and a prefill
+followed by decode steps on the CPU, shapes and finiteness asserted, with
+the port's own weights (drawn from a torch.Generator)."""
 import numpy as np
 import pytest
 import torch
@@ -11,6 +9,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import get_model, rglru, xlstm
+from repro_torch.models.common import tree_leaves
 
 
 def _batch(model, B=2, S=16, seed=0):
@@ -39,11 +38,34 @@ def test_forward(arch):
     assert logits.shape == (2, 16, cfg.vocab_size)
     assert logits.dtype == torch.float32
     assert bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits"
-    # the next-token cross-entropy: near log(V) at init
+    loss = model.loss_fn(params, batch)
+    assert loss.shape == ()
+    assert bool(torch.isfinite(loss)), f"{arch}: non-finite loss"
+    # a one-hot-ish sanity: loss should be near log(V) at init
+    assert 0.5 * np.log(cfg.vocab_size) < float(loss) \
+        < 2.5 * np.log(cfg.vocab_size)
+    # the next-token cross-entropy of the forward's logits, as an oracle
     xent = F.cross_entropy(logits[:, :-1].reshape(-1, cfg.vocab_size),
                            batch["labels"][:, 1:].reshape(-1))
-    assert 0.5 * np.log(cfg.vocab_size) < float(xent) \
-        < 2.5 * np.log(cfg.vocab_size)
+    assert abs(float(loss) - float(xent)) <= 1e-5 * float(xent)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_train_grad_step(arch):
+    cfg = get_config(arch, smoke=True)
+    model = get_model(cfg)
+    params = model.init(1, device="cpu")
+    batch = _batch(model)
+    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+    loss = model.loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    assert bool(torch.isfinite(loss))
+    flat = [torch.zeros_like(t) if g is None else g
+            for t, g in zip(leaves, grads)]
+    assert all(bool(torch.isfinite(g).all()) for g in flat), \
+        f"{arch}: bad grads"
+    # at least one nonzero gradient leaf
+    assert any(float(g.float().abs().max()) > 0 for g in flat)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
