@@ -45,6 +45,17 @@ toolkit. Its phases, in order, each printing one JSON line:
 * `train_numerics`: float32 depth cuts of four families, the loss,
   gradients and one update of each optimizer on the card against the
   CPU.
+* `shard_train`, `shard_moe`: train_dense's step with DTensor parameters
+  on a 1x1 ("data", "model") mesh of the card (nccl, one rank) against the
+  plain step from the same weights, and qwen2-moe-a2.7b's prefill and
+  decode with DTensor weights (the routed experts' local region, the
+  caches in `kv_cache_sharding`'s layout) against plain weights.
+* `stacked`: phi4-mini-3.8b's loss on the stacked layer layout against
+  `loss_fn`, and the round trip between the layouts.
+* `dryrun`: in subprocesses, train_dense's configuration as a one-card
+  dry-run cell (fake tensors, the step counter) against its analytic
+  FLOPs and train_dense's measured peak, and a production cell on the
+  16x16 mesh of 256 fake ranks with its H100 roofline terms.
 * the kernel line: every kernel with its time beside its bound.
 
 It then prints the `nvidia-smi` name and power limit and last
@@ -90,7 +101,13 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.egress import EgressCache, ObjectStore  # noqa: E402
 from repro_torch.fleet import Fleet  # noqa: E402
 from repro_torch.models import get_model, moe, transformer, xlstm  # noqa: E402
-from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
+from repro_torch.models.common import (set_activation_mesh,  # noqa: E402
+                                       tree_leaves, tree_map, tree_zip_map)
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import (make_mesh,  # noqa: E402
+                                     start_process_group, stop_process_group)
+from repro_torch.parallel import (batch_spec, kv_cache_sharding,  # noqa: E402
+                                  make_rules, params_sharding)
 from repro_torch.obs import EventLog, Tracer  # noqa: E402
 from repro_torch.online import (DollarGovernor, MetricsRegistry,  # noqa: E402
                                 WindowedAuditor)
@@ -100,7 +117,12 @@ from repro_torch.train import (DataPipeline, DriverConfig,  # noqa: E402
                                FailureInjector, OptimizerConfig,
                                ShardedTokenDataset, TrainDriver,
                                make_optimizer, make_train_step)
-from repro_torch.train.trainer import value_and_grad  # noqa: E402
+from repro_torch.train.trainer import (train_state_shardings,  # noqa: E402
+                                       value_and_grad)
+# the H100 SXM's data-sheet rates: dense bf16 tensor cores, float32 outside
+# them, device memory
+from repro_torch.launch.roofline import (  # noqa: E402
+    F32_PEAK_FLOPS, HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS as BF16_PEAK_FLOPS)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.evict_argmin import evict_argmin_cuda  # noqa: E402
 from repro_torch.kernels.interval_occupancy import (  # noqa: E402
@@ -125,7 +147,6 @@ SCAN_T = [1, 31, 4095, 4096, 4097, 200_000, 2**24 + 3,
 SCAN_T3 = 65536 * SCAN_TILE + SCAN_TILE + 1   # a third level in the tree
 SCAN_BYTES_T = 2**26        # 256 MiB an array: far past the 50 MB L2
 NU_BYTES_T, NU_BYTES_N = 2**26, 2**22   # next_use's large timing shape
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
 NO_LAUNCHES = {name: 0 for name in ops.KERNELS}
 
 KERNEL_INFO = {
@@ -989,7 +1010,6 @@ SERVE_POOL, SERVE_PROMPT, SERVE_LONG = 8, 512, 2304
 SERVE_ROUNDS, SERVE_PER_ROUND, SERVE_NEW, SERVE_LONG_NEW = 8, 4, 8, 4
 SERVE_ZIPF, SERVE_WINDOW = 1.1, 4
 SERVE_PRICE = "gcs_internet"
-BF16_PEAK_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core rate (data sheet)
 # serve_numerics tolerances, on max|gap| / max|reference logit|, set from
 # bf16's 8-bit mantissa (one rounding: 2^-9 relative) before any run:
 # (a) decode against prefill, both bf16 on the card through 32 layers: the
@@ -1478,7 +1498,6 @@ MOE_ARCH = "qwen2-moe-a2.7b"
 MOE_PARAMS = 14_315_587_584
 MOE_CACHE_BYTES = 192 << 20       # four 48 MiB blobs of 512-token prefixes
 MOE_FLEET_NODES = 3
-F32_PEAK_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
 # serve_moe_numerics tolerances, on max|gap| / max|reference logit|, fixed
 # before any run:
 # (a) decode against prefill, both bf16 on the card through 24 layers, as
@@ -1879,7 +1898,7 @@ def phase_moe_serving(seed: int, dev) -> None:
 HYBRID_ARCH, XLSTM_ARCH = "recurrentgemma-9b", "xlstm-125m"
 VLM_ARCH, WHISPER_ARCH = "qwen2-vl-72b", "whisper-large-v3"
 # qwen2-vl-72b's 80 layers are 72.7 B parameters, 145 GB in bf16: one 80 GB
-# card holds 20 (sharding is ROADMAP queue 1, item 9)
+# card holds 20 (the whole model needs the layers sharded over cards)
 VLM_LAYERS = 20
 WHISPER_TOKENS = 448        # Whisper's decoder length
 MODEL_DECODE_STEPS = 8
@@ -2231,7 +2250,8 @@ def phase_model(seed: int, arch: str, dev, layers: int | None = None) -> dict:
          reduced=None if layers is None else dict(
              num_layers=[full.num_layers, layers],
              why="80 layers are 72.7 B parameters, 145 GB in bf16: one "
-                 "80 GB card holds 20 (sharding is ROADMAP item 9)"),
+                 "80 GB card holds 20 (the whole model needs cards "
+                 "enough to shard it over)"),
          peak_device_gib=peak_gib, launches=launches, **report,
          seconds=time.perf_counter() - t_phase)
     del model, params, batch
@@ -2619,7 +2639,7 @@ def dense_train_bounds(cfg, tokens: int, S: int) -> dict:
                 bound_ms=(bf16 / BF16_PEAK_FLOPS + f32 / F32_PEAK_FLOPS) * 1e3)
 
 
-def phase_train_dense(seed: int, dev) -> None:
+def phase_train_dense(seed: int, dev) -> dict:
     """phi4-mini-3.8b at full width and depth trained on the card:
     Adafactor (the reference's optimizer where float32 Adam moments do not
     fit), remat, two microbatches, a global batch of 4 x 512 tokens from
@@ -2679,6 +2699,7 @@ def phase_train_dense(seed: int, dev) -> None:
          seconds=time.perf_counter() - t_phase)
     del params, opt_state, batch
     torch.cuda.empty_cache()
+    return dict(peak_gib=peak_gib, **bounds)
 
 
 def train_cut_vs_cpu(seed: int, arch: str, dev) -> dict:
@@ -2764,22 +2785,445 @@ def phase_train_numerics(seed: int, dev) -> None:
          seconds=time.perf_counter() - t_phase)
 
 
-def phase_training(seed: int, dev) -> None:
+def phase_training(seed: int, dev) -> dict:
     """The training slice: train_xlstm, train_resume, train_dense,
-    train_numerics, each freeing its weights before the next."""
+    train_numerics, each freeing its weights before the next. Returns
+    train_dense's peak memory and operations count."""
     phase_train_xlstm(seed, dev)
     phase_train_resume(seed, dev)
-    phase_train_dense(seed, dev)
+    dense = phase_train_dense(seed, dev)
     phase_train_numerics(seed, dev)
+    return dense
+
+
+# ---------------------------------------------------------------------------
+# sharding: DTensor parameters on a 1x1 ("data", "model") mesh of the card,
+# the stacked layer layout, and the production meshes' dry-run on fake
+# devices
+
+# tolerances, fixed before the first chip run. On one rank every
+# redistribute is a no-op and the local operations are the plain path's in
+# its order, so bit-equality is predicted everywhere; the gates are:
+# shard_train: the loss within rel 2^-12, each updated leaf within 2^-16 of
+#   its max |p| (train_numerics' update rule);
+# shard_moe: equal tokens, every logit within 2^-12 of the max |logit|;
+# stacked: the scanned loss and the round trip bit-equal;
+# dryrun (a): the counted per-device FLOPs within x[0.99, 1.05] of
+#   `dense_train_bounds`' count less the FFN products that remat does not
+#   recompute (predicted x1.014: the materialised attention multiplies
+#   full S x S blocks, the bound counts the causal half), the counted peak
+#   within +-15 % of train_dense's max_memory_allocated in this run;
+# dryrun (b): the production cell ok, collectives counted, per-device
+#   FLOPs <= 1/16 of the step's global count, taken as the record's
+#   `model_flops` (6ND for training, 2ND for inference: the step's useful
+#   FLOPs, below its whole count, which adds remat and attention, so the
+#   gate is the stricter for it).
+SHARD_LOSS_REL = 2.0 ** -12
+SHARD_UPDATE_REL = 2.0 ** -16
+SHARD_LOGIT_REL = 2.0 ** -12
+SHARD_MOE_BATCH, SHARD_MOE_SEQ, SHARD_MOE_STEPS = 4, 512, 8
+STACKED_BATCH, STACKED_SEQ = 2, 512
+DRYRUN_FLOPS_RATIO = (0.99, 1.05)
+DRYRUN_PEAK_REL = 0.15
+# the production cells run on the card; phi4-mini-3.8b x train_4k (256
+# layer-microbatches on fake tensors) was cut: its step alone took 131-169
+# s of the card's host and the phase 182-199 s, past the ~180 s the phase
+# may take (its records from those runs are in PERF.md); qwen2-moe-a2.7b
+# x decode_32k takes a few seconds
+DRYRUN_CELLS = [("qwen2-moe-a2.7b", "decode_32k")]
+DRYRUN_TIMEOUT_S = 900
+
+
+@contextlib.contextmanager
+def card_mesh():
+    """A 1x1 ("data", "model") DeviceMesh of the card over an nccl group of
+    one rank (an in-process store), set as the activation mesh."""
+    start_process_group("nccl")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        set_activation_mesh(mesh)
+        yield mesh
+    finally:
+        set_activation_mesh(None)
+        stop_process_group()
+
+
+def on_mesh(tree, shardings):
+    """tree's tensors as DTensors by `shardings` on a mesh of one device,
+    where a tensor is its own local shard: no copy is made."""
+    from torch.distributed.tensor import DTensor
+
+    def one(t, s):
+        check(s.mesh.size() == 1, "on_mesh takes a one-device mesh")
+        return DTensor.from_local(t, s.mesh, s.placements, run_check=False)
+    return tree_zip_map(one, tree, shardings)
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def whole(t):
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def train_steps_ms(step, params, opt_state, batch: dict, n: int) -> tuple:
+    """n steps from (params, opt_state), CUDA-event ms each."""
+    ms = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, params, opt_state = step(params, opt_state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return ms, params, opt_state
+
+
+def phase_shard_train(seed: int, dev) -> None:
+    """train_dense's step (phi4-mini-3.8b at full width and depth,
+    Adafactor, remat, two microbatches, 4 x 512 tokens) twice from the same
+    weights and batch: with DTensor parameters, optimizer state and batch
+    on the card's 1x1 mesh and `grad_shardings`, then plain. One model on
+    the card at a time: the start and the DTensor run's update wait on the
+    host. Then three more steps of each, timed and profiled."""
+    t_phase = time.perf_counter()
+    model, params, setup = serve_setup(seed, dev, DENSE_ARCH)
+    cfg = model.cfg
+    check(setup["params"] == DENSE_PARAMS,
+          f"{DENSE_ARCH}: {setup['params']} parameters")
+    B, S, V = DENSE_BATCH, DENSE_SEQ, cfg.vocab_size
+    batch = first_batch(B, S, V, dev)
+    opt = make_optimizer(OptimizerConfig(name="adafactor"))
+    start = tree_map(lambda t: t.cpu(), params)
+    runs = {}
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with card_mesh() as mesh:
+        rules = make_rules(mesh)
+        ps, osd, _, _ = train_state_shardings(rules, model, opt)
+        step = make_train_step(model, opt, microbatches=2, grad_shardings=ps)
+        p = on_mesh(params, ps)
+        s = on_mesh(opt.init(params), osd)
+        b = on_mesh(batch, batch_spec(rules, batch))
+        del params
+        t0 = time.perf_counter()
+        loss, p1, s1 = step(p, s, b)
+        loss = float(loss)
+        first_s = time.perf_counter() - t0
+        kept = []
+        tree_zip_map(lambda t, w: kept.append(
+            is_dtensor(t) and t.placements == w.placements), p1, ps)
+        check(all(kept), "the DTensor step's parameters left their layout")
+        updated = tree_map(lambda t: t.to_local().cpu(), p1)
+        del p, s
+        ms, p1, s1 = train_steps_ms(step, p1, s1, b, 2)
+        prof = step_profile(step, p1, s1, b)
+        runs["dtensor"] = dict(loss=loss, first_step_s=first_s, step_ms=ms,
+                               profile=prof)
+        del p1, s1, b
+    torch.cuda.empty_cache()
+    params = tree_map(lambda t: t.to(dev), start)
+    del start
+    step = make_train_step(model, opt, microbatches=2)
+    t0 = time.perf_counter()
+    loss, p1, s1 = step(params, opt.init(params), batch)
+    loss = float(loss)
+    first_s = time.perf_counter() - t0
+    gaps, equal = [], True
+    for p, new, dt in zip(tree_leaves(params), tree_leaves(p1),
+                          tree_leaves(updated)):
+        dt = dt.to(dev)
+        equal = equal and torch.equal(new, dt)
+        gaps.append(float((new.float() - dt.float()).abs().max()
+                          / p.float().abs().max()))
+        del dt
+    del params, updated
+    ms, p1, s1 = train_steps_ms(step, p1, s1, batch, 2)
+    prof = step_profile(step, p1, s1, batch)
+    runs["plain"] = dict(loss=loss, first_step_s=first_s, step_ms=ms,
+                         profile=prof)
+    del p1, s1
+    torch.cuda.empty_cache()
+    launches = ops.launch_counts()
+    check(launches == NO_LAUNCHES, f"shard_train launched kernels: {launches}")
+    loss_gap = abs(runs["dtensor"]["loss"] - loss) / abs(loss)
+    check(loss_gap <= SHARD_LOSS_REL, f"loss DTensor against plain {loss_gap}")
+    check(max(gaps) <= SHARD_UPDATE_REL,
+          f"update DTensor against plain {max(gaps)}")
+    bit_equal = equal and runs["dtensor"]["loss"] == loss
+    print(f"shard_train: DTensor step bit-equal to the plain step: "
+          f"{bit_equal}", flush=True)
+    emit("shard_train", arch=DENSE_ARCH, params=setup["params"],
+         reduced=None, mesh={"data": 1, "model": 1}, backend="nccl",
+         optimizer="adafactor lr 3e-4", microbatches=2, remat=True,
+         batch=B, seq=S, grad_shardings=True, bit_equal=bit_equal,
+         rel_gap_loss=loss_gap, max_rel_gap_update=max(gaps),
+         tolerance_rel={"loss": SHARD_LOSS_REL, "update": SHARD_UPDATE_REL},
+         runs=runs, peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+         launches=launches, seconds=time.perf_counter() - t_phase)
+
+
+def greedy(model, params, batch: dict, steps: int, rules=None) -> tuple:
+    """Prefill `batch`, grow the caches and decode `steps` greedy tokens:
+    the prefill logits and each step's, and the tokens (B, steps + 1).
+    With `rules` the prefill's caches take `kv_cache_sharding`'s layout."""
+    S = batch["tokens"].shape[1]
+    logits, caches = model.prefill(params, batch)
+    if rules is not None:
+        caches = tree_zip_map(lambda c, w: c.redistribute(w.mesh,
+                                                          w.placements),
+                              caches, kv_cache_sharding(rules, caches))
+    caches = _grow(model, caches, S + steps)
+    out, toks = [whole(logits)], [whole(torch.argmax(logits, -1))]
+    tok = torch.argmax(logits, -1)
+    for i in range(steps):
+        logits, caches = model.decode_step(params, tok, caches, S + i)
+        tok = torch.argmax(logits, -1)
+        out.append(whole(logits))
+        toks.append(whole(tok))
+    torch.cuda.synchronize()
+    return out, torch.stack(toks, 1)
+
+
+def phase_shard_moe(seed: int, dev) -> None:
+    """qwen2-moe-a2.7b at full width through ModelApi, a 4 x 512 prefill
+    and 8 greedy decode steps, with plain weights and with DTensor weights
+    on the card's 1x1 mesh (prefill batch and decode tokens placed by
+    `batch_spec`, the caches by `kv_cache_sharding`): the routed experts
+    through the local region and its token-space sum. Timed and profiled
+    both ways."""
+    t_phase = time.perf_counter()
+    model, params, setup = serve_setup(seed, dev, MOE_ARCH)
+    cfg = model.cfg
+    check(setup["params"] == MOE_PARAMS,
+          f"{setup['params']} parameters, not {MOE_PARAMS}")
+    rng = np.random.default_rng(seed + 19)
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (SHARD_MOE_BATCH, SHARD_MOE_SEQ)), device=dev)
+    batch = {"tokens": tokens}
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    want, want_tok = greedy(model, params, batch, SHARD_MOE_STEPS)
+    timing = {"plain": time_prefill_decode(model, params, batch, steps=8)}
+    profile = {"plain": decode_profile(model, params, batch)}
+    with card_mesh() as mesh:
+        rules = make_rules(mesh)
+        dp = on_mesh(params, params_sharding(rules, model.abstract(),
+                                             model.axes()))
+        db = on_mesh(batch, batch_spec(rules, batch))
+        got, got_tok = greedy(model, dp, db, SHARD_MOE_STEPS, rules)
+        timing["dtensor"] = time_prefill_decode(model, dp, db, steps=8)
+        profile["dtensor"] = decode_profile(model, dp, db)
+        del dp, db
+    launches = ops.launch_counts()
+    check(launches == NO_LAUNCHES, f"shard_moe launched kernels: {launches}")
+    scale = max(float(w.float().abs().max()) for w in want)
+    gap = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want)) / scale
+    check(torch.equal(got_tok, want_tok),
+          "DTensor weights decoded other tokens")
+    check(gap <= SHARD_LOGIT_REL, f"logits DTensor against plain {gap}")
+    bit_equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    print(f"shard_moe: DTensor logits bit-equal to the plain ones: "
+          f"{bit_equal}", flush=True)
+    emit("shard_moe", arch=MOE_ARCH, params=setup["params"], reduced=None,
+         mesh={"data": 1, "model": 1}, backend="nccl",
+         batch=SHARD_MOE_BATCH, seq=SHARD_MOE_SEQ,
+         decode_steps=SHARD_MOE_STEPS, tokens_equal=True,
+         bit_equal=bit_equal, max_rel_gap_logits=gap,
+         tolerance_rel=SHARD_LOGIT_REL, timing=timing, profile=profile,
+         peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+         launches=launches, seconds=time.perf_counter() - t_phase)
+    del params, want, got
+    torch.cuda.empty_cache()
+
+
+def phase_stacked(seed: int, dev) -> None:
+    """phi4-mini-3.8b in bf16: `loss_fn_scanned` on the stacked layout
+    (`params_to_stacked`, a copy of the 32 layers) against `loss_fn` on
+    2 x 512 tokens, and the round trip back to the per-layer layout: both
+    bit-equal."""
+    t_phase = time.perf_counter()
+    model, params, setup = serve_setup(seed, dev, DENSE_ARCH)
+    cfg = model.cfg
+    batch = first_batch(STACKED_BATCH, STACKED_SEQ, cfg.vocab_size, dev)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        want = model.loss_fn(params, batch)
+        sp = transformer.params_to_stacked(cfg, params)
+        got = transformer.loss_fn_scanned(cfg, sp, batch)
+        back = transformer.stacked_to_params(cfg, sp)
+        ms = {}
+        for name, fn in (("loss_fn", lambda: model.loss_fn(params, batch)),
+                         ("loss_fn_scanned", lambda: transformer
+                          .loss_fn_scanned(cfg, sp, batch))):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            ms[name] = start.elapsed_time(end)
+    launches = ops.launch_counts()
+    check(launches == NO_LAUNCHES, f"stacked launched kernels: {launches}")
+    check(torch.equal(got, want),
+          f"scanned loss {float(got)!r}, loss_fn {float(want)!r}")
+    a, b = tree_leaves(params), tree_leaves(back)
+    check(len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                   for x, y in zip(a, b)),
+          "the round trip through the stacked layout changed a leaf")
+    stack_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(sp["stack"]))
+    emit("stacked", arch=DENSE_ARCH, params=setup["params"], reduced=None,
+         batch=STACKED_BATCH, seq=STACKED_SEQ, loss=float(want),
+         bit_equal=True, round_trip_exact=True, leaves=len(a),
+         stack_leaves=len(tree_leaves(sp["stack"])),
+         stack_gib=stack_bytes / 2**30, loss_ms=ms,
+         peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+         launches=launches, seconds=time.perf_counter() - t_phase)
+    del params, sp, back
+    torch.cuda.empty_cache()
+
+
+def dryrun_worker(part: str, device_type: str = "cuda") -> dict:
+    """One part of the dry-run phase, in a process of its own (each starts
+    its own default process group): "one_card", train_dense's
+    configuration as a one-card cell built from the dry-run's own pieces
+    on a 1x1 mesh of a fake group, fake tensors on the card's device type;
+    or "arch:shape", a production cell on the 16x16 mesh of 256 fake
+    ranks."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    t0 = time.perf_counter()
+    if part != "one_card":
+        arch, shape = part.split(":")
+        rec = dryrun.run_cell(arch, shape, multi_pod=False,
+                              device_type=device_type)
+        rec["seconds"] = time.perf_counter() - t0
+        return rec
+    start_process_group("fake", 1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type)
+        set_activation_mesh(mesh)
+        model = get_model(get_config(DENSE_ARCH))
+        opt = make_optimizer(OptimizerConfig(name="adafactor"))
+        rules = make_rules(mesh)
+        ps, osd, ap, aos = train_state_shardings(rules, model, opt)
+        step = make_train_step(model, opt, microbatches=2, grad_shardings=ps)
+        batch = model.train_inputs(DENSE_BATCH, DENSE_SEQ)
+        fm = FakeTensorMode(allow_non_fake_inputs=True)
+        args = (dryrun.place(fm, ap, ps, device_type),
+                dryrun.place(fm, aos, osd, device_type),
+                dryrun.place(fm, batch, batch_spec(rules, batch),
+                             device_type))
+        one_card = dryrun.measure(dryrun.Cell(step, args, {}, {}), fm)
+    finally:
+        set_activation_mesh(None)
+        stop_process_group()
+    one_card["seconds"] = time.perf_counter() - t0
+    return one_card
+
+
+def run_workers(parts: list) -> list:
+    """`dryrun_worker` on each part, all in parallel subprocesses; each
+    one's result, or a failed check. Every process is stopped on the way
+    out."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--dryrun-worker", part],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for part in parts]
+    deadline = time.perf_counter() + DRYRUN_TIMEOUT_S
+    out = []
+    try:
+        for part, proc in zip(parts, procs):
+            stdout, stderr = proc.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+            check(proc.returncode == 0, f"dryrun {part}: {stderr[-3000:]}")
+            out.append(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def phase_dryrun(dense: dict) -> None:
+    """The dry-run in subprocesses, one a part, run in parallel
+    (`dryrun_worker`): (a) the one-card cell's counted FLOPs against
+    `dense_train_bounds`' count and its counted peak against train_dense's
+    measured one; (b) the production cell's record. No cell launches a
+    kernel (fake tensors)."""
+    t_phase = time.perf_counter()
+    one, *records = run_workers(["one_card"] + [f"{a}:{s}" for a, s in
+                                               DRYRUN_CELLS])
+    cfg = get_config(DENSE_ARCH)
+    # non-reentrant checkpointing recomputes a layer's forward only as far
+    # as its backward needs: the FFN's last product (h @ w2), whose output
+    # no gradient reads, is not recomputed (XLA drops it from the
+    # reference's remat as dead code alike); the bound counts it
+    not_recomputed = (2 * DENSE_BATCH * DENSE_SEQ * cfg.d_model * cfg.d_ff
+                      * cfg.num_layers)
+    count = dense["bf16_flops"] + dense["f32_flops"] - not_recomputed
+    ratio = one["cost"]["flops_per_device"] / count
+    peak_rel = one["memory"]["peak_gib"] / dense["peak_gib"] - 1
+    check(DRYRUN_FLOPS_RATIO[0] <= ratio <= DRYRUN_FLOPS_RATIO[1],
+          f"one-card dry-run FLOPs x{ratio} of dense_train_bounds'")
+    check(abs(peak_rel) <= DRYRUN_PEAK_REL,
+          f"one-card dry-run peak {one['memory']['peak_gib']} GiB against "
+          f"train_dense's {dense['peak_gib']} GiB")
+    cells = []
+    for rec in records:
+        coll = rec["collectives"]
+        check(rec["ok"] and coll["total_count"] > 0,
+              f"{rec['arch']} x {rec['shape']}: {rec}")
+        share = rec["cost"]["flops_per_device"] / rec["model_flops"]
+        check(share <= 1 / 16, f"{rec['arch']} x {rec['shape']}: per-device "
+                               f"FLOPs {share} of the global count")
+        cells.append(dict(rec, per_device_share=share))
+    emit("dryrun", one_card=dict(
+             arch=DENSE_ARCH, mesh={"data": 1, "model": 1},
+             microbatches=2, batch=DENSE_BATCH, seq=DENSE_SEQ,
+             flops_per_device=one["cost"]["flops_per_device"],
+             analytic_flops=count, bound_flops=count + not_recomputed,
+             not_recomputed_flops=not_recomputed, flops_ratio=ratio,
+             peak_gib=one["memory"]["peak_gib"], memory=one["memory"],
+             measured_peak_gib=dense["peak_gib"], peak_rel_gap=peak_rel,
+             collectives=one["collectives"], step_s=one["compile_s"],
+             seconds=one["seconds"]),
+         cells=cells, roofline_figures="H100 SXM data sheet: 989 TFLOP/s "
+         "bf16, 3.35 TB/s, NVLink 450 GB/s a direction; projections, not "
+         "measurements",
+         tolerance=dict(flops_ratio=DRYRUN_FLOPS_RATIO,
+                        peak_rel=DRYRUN_PEAK_REL, per_device_share=1 / 16),
+         seconds=time.perf_counter() - t_phase)
+
+
+def phase_sharding(seed: int, dev, dense: dict) -> None:
+    """The sharding slice: shard_train, shard_moe, stacked, dryrun, each
+    freeing its weights before the next; each launches every kernel 0
+    times."""
+    phase_shard_train(seed, dev)
+    phase_shard_moe(seed, dev)
+    phase_stacked(seed, dev)
+    phase_dryrun(dense)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--dryrun-worker", metavar="PART",
+                    help="run one part of the dryrun phase and print it")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.dryrun_worker:
+        print(json.dumps(dryrun_worker(args.dryrun_worker)), flush=True)
+        return 0
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2800,7 +3244,8 @@ def main() -> int:
     phase_serving(args.seed, dev)
     phase_moe_serving(args.seed, dev)
     phase_families(args.seed, dev)
-    phase_training(args.seed, dev)
+    dense = phase_training(args.seed, dev)
+    phase_sharding(args.seed, dev, dense)
     # each kernel's launches on its own path, counted from 0 around it
     launches = {"evict_argmin": full["launches"]["evict_argmin"],
                 "next_use": full["launches"]["next_use"],

@@ -13,8 +13,9 @@ training loss `softmax_xent` and the per-layer remat `checkpoint_layer`
 (`torch.utils.checkpoint` in place of `jax.checkpoint`) are the
 reference's.
 
-Sharding hints (`constrain`, `set_activation_mesh`, `tp_divides`) keep
-their names and do nothing yet: the port runs on one card.
+Sharding hints (`constrain`, `set_activation_mesh`, `tp_divides`) are
+the reference's: with a launcher mesh set they redistribute DTensor
+activations (`repro_torch.parallel`); on plain tensors they do nothing.
 """
 from __future__ import annotations
 
@@ -168,27 +169,188 @@ def init_params(defs: Any, generator: torch.Generator, dtype,
     return tree_map(make, defs)
 
 
+def abstract_params(defs: Any, dtype) -> Any:
+    """Meta tensors of a ParamDef tree: shapes and dtypes, no storage."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype or dtype,
+                                          device="meta"), defs)
+
+
+def axes_tree(defs: Any) -> Any:
+    """The logical axes of a ParamDef tree, one tuple a leaf."""
+    return tree_map(lambda d: d.axes, defs)
+
+
 # ---------------------------------------------------------------------------
-# activation sharding hints: no-ops on one card (ROADMAP queue 1, item 9)
+# activation sharding hints (set by the launcher; identities without a mesh)
 # ---------------------------------------------------------------------------
 
+_ACT_MESH = None
+
+
 def set_activation_mesh(mesh):
-    """Launcher hook of the reference; the port has no mesh yet."""
-    if mesh is not None:
-        raise NotImplementedError("sharding is ROADMAP queue 1, item 9")
+    """Launcher hook: `constrain` hints resolve against this DeviceMesh
+    ("pod"/"data" = DP+FSDP, "model" = TP). None disables every hint."""
+    global _ACT_MESH
+    _ACT_MESH = mesh
 
 
 def constrain(x, *axes):
-    """Sharding hint of the reference; the identity on one card."""
-    return x
+    """Redistribute the DTensor x to the spec `axes` on the launcher mesh:
+    each entry is a mesh-axis name, a tuple of names, or None. Axes missing
+    from the mesh or not dividing the dim are dropped. The identity on a
+    plain tensor and when no mesh is set."""
+    from torch.distributed.tensor import DTensor
+    if _ACT_MESH is None or not isinstance(x, DTensor):
+        return x
+    from ..parallel.sharding import axis_sizes, placements
+    sizes = axis_sizes(_ACT_MESH)
+    spec = []
+    for dim, ax in zip(x.shape, axes):
+        if ax is None:
+            spec.append(None)
+            continue
+        axt = (ax,) if isinstance(ax, str) else tuple(ax)
+        axt = tuple(a for a in axt if a in sizes)
+        size = math.prod(sizes[a] for a in axt)
+        if axt and dim % size == 0:
+            spec.append(axt if len(axt) > 1 else axt[0])
+        else:
+            spec.append(None)
+    spec += [None] * (x.ndim - len(spec))
+    return x.redistribute(_ACT_MESH, placements(_ACT_MESH, spec))
 
 
 DP_AXES = ("pod", "data")
 
 
+def unshard_fsdp(tree):
+    """Each DTensor of tree replicated on the data-parallel axes, its
+    other placements kept: FSDP's gather of a layer's weights before they
+    are used, which is the layout GSPMD gives the reference's FSDP
+    products. DTensor's own choice for a product of row-sharded
+    activations and FSDP-sharded weights can instead move the activations
+    (every rank then holds every row). The gradient's way back is a
+    reduce-scatter. Plain tensors pass through."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def one(t):
+        if not isinstance(t, DTensor):
+            return t
+        mesh = t.device_mesh
+        pl = [Replicate() if name in DP_AXES else q
+              for name, q in zip(mesh.mesh_dim_names, t.placements)]
+        return t.redistribute(mesh, pl)
+    return tree_map(one, tree)
+
+
+# ---------------------------------------------------------------------------
+# local regions: each rank's part of a DTensor computation, on plain tensors
+# ---------------------------------------------------------------------------
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+class Region:
+    """The layout of a local region on `mesh`: the rows of the activations
+    (their dim 0, B of them) split over the data-parallel axes when those
+    divide B (else every rank takes them all), and the tensor-parallel
+    axis "model" splitting what the caller names where `tp_split` (else
+    replicated). Inside, each rank runs the plain code on its local
+    tensors; DTensor sees only the redistributions at the borders.
+
+    `enter(t, rows, tp, grad_rows, grad_tp)` gives t's local tensor in the
+    layout (rows on the data-parallel axes, tp on "model") and declares
+    its local gradient's layout: partial where every rank's part of the
+    computation adds to it. `leave(t, rows, tp)` makes a DTensor of a
+    local result."""
+
+    def __init__(self, mesh, B: int, tp_split: bool):
+        self.mesh = mesh
+        self.names = tuple(mesh.mesh_dim_names)
+        sizes = dict(zip(self.names, mesh.shape))
+        dp = math.prod(sizes[a] for a in DP_AXES if a in sizes)
+        self.rows = dp > 1 and B % dp == 0
+        self.tp = tp_split and "model" in sizes
+
+    def placements(self, rows, tp) -> list:
+        from torch.distributed.tensor import Replicate
+        return [(rows if self.rows else Replicate()) if n in DP_AXES
+                else (tp if self.tp and n == "model" else Replicate())
+                for n in self.names]
+
+    def enter(self, t, rows, tp, grad_rows, grad_tp):
+        from torch.distributed.tensor import DTensor, Replicate
+        if not isinstance(t, DTensor):     # alike on every rank
+            t = DTensor.from_local(t, self.mesh, [Replicate()] * len(
+                self.names), run_check=False)
+        return t.redistribute(self.mesh, self.placements(rows, tp)) \
+            .to_local(grad_placements=self.placements(grad_rows, grad_tp))
+
+    def leave(self, t, rows, tp):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(t, self.mesh, self.placements(rows, tp),
+                                  run_check=False)
+
+    def tp_index(self) -> int:
+        """This rank's coordinate on "model" (0 where it is not split)."""
+        return self.mesh.get_local_rank("model") if self.tp else 0
+
+
+def rows_region(fn, weights, *acts):
+    """fn(weights, *acts) for DTensor activations, in a local region that
+    splits only the rows (dim 0 of every tensor of `acts`: activations,
+    positions, caches, states) over the data-parallel axes and gives each
+    rank `weights` (a tree) whole: the layers of the recurrent families
+    and whisper, whose scans, chunk loops and two attentions DTensor has
+    no rules for, with no tensor parallelism inside (every "model" rank
+    runs the same layer). fn's tensors come back as rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    first = next(t for t in tree_leaves(list(acts)) if is_dtensor(t))
+    r = Region(first.device_mesh, first.shape[0], False)
+    wl = tree_map(lambda t: r.enter(t, Replicate(), Replicate(), Partial(),
+                                    Replicate()), weights)
+    al = tree_map(lambda t: None if t is None else r.enter(
+        t, Shard(0), Replicate(), Shard(0), Replicate()), list(acts))
+    return tree_map(lambda t: r.leave(t, Shard(0), Replicate())
+                    if isinstance(t, torch.Tensor) else t, fn(wl, *al))
+
+
+def tp_size(mesh) -> int:
+    return dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
+
+
+def embed_lookup(table, tokens):
+    """table[tokens]. On a DTensor table, in a local region: rows of the
+    tokens on the data-parallel axes, the vocabulary split on "model"
+    where it divides (each rank looks up the tokens in its slice, zeros
+    the others'; the slices' sum is taken on token space)."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    V = table.shape[0]
+    r = Region(table.device_mesh, tokens.shape[0],
+               V % tp_size(table.device_mesh) == 0)
+    tl = r.enter(table, Replicate(), Shard(0), Partial(), Shard(0))
+    ids = r.enter(tokens, Shard(0), Replicate(), Shard(0), Replicate())
+    lo = r.tp_index() * tl.shape[0]
+    local = ids - lo
+    ok = (local >= 0) & (local < tl.shape[0])
+    rows = torch.where(ok[..., None], tl[local.clamp(0, tl.shape[0] - 1)],
+                       0)
+    out = r.leave(rows, Shard(0), Partial())
+    return out.redistribute(r.mesh, r.placements(Shard(0), Replicate()))
+
+
 def tp_divides(n: int) -> bool:
-    """False: no mesh, so no tensor-parallel axis."""
-    return False
+    """True when dim n divides the active mesh's "model" axis (False when
+    no mesh is set: hints are identities then anyway)."""
+    if _ACT_MESH is None:
+        return False
+    from ..parallel.sharding import axis_sizes
+    sizes = axis_sizes(_ACT_MESH)
+    return "model" in sizes and n % sizes["model"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -380,6 +542,7 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
         vbh = torch.repeat_interleave(v[:, sl], rep, dim=2)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, kbh).to(torch.float32) \
             * scale
+        logits = constrain(logits, DP_AXES, "model", None, None)
         if logit_softcap > 0:
             logits = logit_softcap * torch.tanh(logits / logit_softcap)
         kidx = ci * kv_chunk + torch.arange(kv_chunk, device=dev)
@@ -392,6 +555,7 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
         l = l * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + torch.einsum(
             "bhqk,bkhd->bhqd", p.to(q.dtype), vbh).to(torch.float32)
+        acc = constrain(acc, DP_AXES, "model", None, None)
         m = m_new
     out = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
     return out.transpose(1, 2).reshape(B, Sq, H * D)
@@ -410,8 +574,22 @@ def softmax_xent(logits, labels, vocab: int):
 
     The gold logit is taken with a masked sum, as the reference takes it
     (not `gather`): the sum rounds as the reference's does, and its
-    gradient is a dense `where`, with no scatter.
+    gradient is a dense `where`, with no scatter. DTensor logits go
+    through a local region: each rank's rows, the vocabulary whole (the
+    logits are gathered over "model"), the mean over ranks' rows a sum of
+    their shares.
     """
+    if is_dtensor(logits):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        B = logits.shape[0]
+        r = Region(logits.device_mesh, B, False)
+        ll = r.enter(logits, Shard(0), Replicate(), Shard(0), Replicate())
+        loss = softmax_xent(ll, r.enter(labels, Shard(0), Replicate(),
+                                        Shard(0), Replicate()), vocab)
+        if r.rows:        # this rank's share of the mean over all rows
+            loss = loss * (ll.shape[0] / B)
+        return r.leave(loss, Partial(), Replicate()).redistribute(
+            r.mesh, r.placements(Replicate(), Replicate()))
     logz = torch.logsumexp(logits, -1)
     iota = torch.arange(logits.shape[-1], device=logits.device)
     gold = torch.where(iota == labels[..., None], logits, 0.0).sum(-1)

@@ -22,15 +22,22 @@ Where PyTorch would otherwise differ from `jnp`:
   renormalisation in float32, the gates then cast to the activation dtype;
   the expert products in the parameter dtype.
 
-The reference's `shard_map` combine (the tensor-parallel psum sunk through
-the combine) waits for sharding (ROADMAP queue 1, item 9).
+On DTensor activations (a launcher mesh, `repro_torch.parallel`) the
+routed experts run in a local region, the counterpart of the reference's
+`shard_map` combine: each rank takes its rows (on the data-parallel axes
+when they divide the batch), the router whole and its "model" slice of the
+experts' f, runs the per-row dispatch above on plain tensors (DTensor has
+no rule for the stable sort, the slot writes or the gathers) and the
+expert products, and the tensor-parallel sum is taken once, on token space
+(B, S, d), after the slot -> token combine, as the reference's psum.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .common import ArchConfig, ParamDef
+from .common import (DP_AXES, ArchConfig, ParamDef, Region, constrain,
+                     is_dtensor)
 
 __all__ = ["moe_ffn_defs", "moe_ffn_apply", "capacity", "route",
            "dispatch_plan"]
@@ -140,13 +147,36 @@ def _decode_gather(cfg: ArchConfig, p, x):
     return y
 
 
+def _local_region(cfg: ArchConfig, p, x, fn):
+    """fn(cfg, p, x) -> (B, S, d) on each rank's plain tensors, for the
+    DTensor x on its mesh (`common.Region`): rows on the data-parallel
+    axes when they divide B, the router whole, w1 and w3 split on "model"
+    along f, w2 on "model" along f; fn's result, a partial sum over
+    "model", is summed on token space. x and the router take partial
+    gradients over "model" (every expert output feeds them)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    r = Region(x.device_mesh, x.shape[0], True)
+    xl = r.enter(x, Shard(0), Replicate(), Shard(0), Partial())
+    pl = {"router": r.enter(p["router"], Replicate(), Replicate(),
+                            Partial(), Partial())}
+    for name, f_dim in (("w1", 2), ("w3", 2), ("w2", 1)):
+        pl[name] = r.enter(p[name], Replicate(), Shard(f_dim), Partial(),
+                           Shard(f_dim))
+    y = r.leave(fn(cfg, pl, xl), Shard(0), Partial())
+    return y.redistribute(r.mesh, r.placements(Shard(0), Replicate()))
+
+
 def moe_ffn_apply(cfg: ArchConfig, p, x):
     """x: (B, S, d). Routing groups are the rows of the batch; S == 1 takes
-    the decode weight-gather path."""
-    if x.shape[1] == 1:
-        y = _decode_gather(cfg, p, x)
+    the decode weight-gather path. A DTensor x runs the routed experts in
+    `_local_region`."""
+    fn = _decode_gather if x.shape[1] == 1 else _dispatch_batched
+    if is_dtensor(x):
+        y = constrain(_local_region(cfg, p, x, fn), DP_AXES, None, None)
     else:
-        y = _dispatch_batched(cfg, p, x)
+        # the routed experts take x through one node, as `_local_region`
+        # does, so x's gradient adds its parts in the same order either way
+        y = fn(cfg, p, x.view_as(x))
     if "shared" in p:
         sh = p["shared"]
         y = y + (F.silu(x @ sh["w1"]) * (x @ sh["w3"])) @ sh["w2"]

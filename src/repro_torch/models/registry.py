@@ -2,6 +2,8 @@
 
 The port of `repro.models.registry`. Every family exposes:
   param_defs / init                     — parameters
+  abstract / axes                       — meta tensors of the parameters
+                                          and their logical axes
   loss_fn(params, batch, remat=True)    — training loss (per-layer remat)
   forward(params, batch, remat=False)   — full-sequence logits
   prefill(params, batch) -> (logits, caches)
@@ -12,8 +14,8 @@ The port of `repro.models.registry`. Every family exposes:
   abstract_caches(batch_size, max_seq)  — the decode state's shapes
 
 All six families are ported, for serving and for training
-(`repro_torch.train`). The reference's `abstract` and `axes` wait for
-sharding (ROADMAP queue 1, item 9).
+(`repro_torch.train`); `abstract` and `axes` feed the sharding rules
+(`repro_torch.parallel`) and the dry-run (`repro_torch.launch`).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 
 from ..core import resolve_device
 from . import rglru, transformer, whisper, xlstm
-from .common import ArchConfig, init_params
+from .common import ArchConfig, abstract_params, axes_tree, init_params
 
 _FAMILY_MODULES = {
     "dense": transformer,
@@ -55,6 +57,14 @@ class ModelApi:
             gen.manual_seed(int(seed_or_generator))
         return init_params(self.param_defs(), gen, self.cfg.param_dtype,
                            device)
+
+    def abstract(self):
+        """Meta tensors of the parameter tree (shapes and dtypes)."""
+        return abstract_params(self.param_defs(), self.cfg.param_dtype)
+
+    def axes(self):
+        """The parameter tree's logical axes, one tuple a leaf."""
+        return axes_tree(self.param_defs())
 
     # ---- steps ------------------------------------------------------------
     def loss_fn(self, params, batch, remat: bool = True):

@@ -21,8 +21,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import (ArchConfig, ParamDef, apply_rope, associative_scan,
-                     attention, checkpoint_layer, chunked_attention, ffn,
+from .common import (DP_AXES, ArchConfig, ParamDef, apply_rope,
+                     associative_scan, attention, checkpoint_layer,
+                     chunked_attention, constrain, embed_lookup, ffn,
+                     is_dtensor, rows_region,
                      linear_recurrence, rms_norm, softmax_xent, softplus)
 from .transformer import _logits, _positions, _write
 
@@ -185,6 +187,12 @@ def _attn_decode_windowed(cfg: ArchConfig, p, x, position: int, kv_cache):
 
 
 def _layer(cfg, l, p, x, positions, q_offset=0, cache=None):
+    """One layer; on DTensor activations each rank runs its rows
+    (`rows_region`)."""
+    if is_dtensor(x):
+        return rows_region(
+            lambda p_, x_, pos_, c_: _layer(cfg, l, p_, x_, pos_, q_offset,
+                                            c_), p, x, positions, cache)
     if "attn" in p:
         h, new_cache = _attn_block(cfg, p["attn"], x, positions,
                                    q_offset=q_offset, kv_cache=cache)
@@ -199,7 +207,8 @@ def _layer(cfg, l, p, x, positions, q_offset=0, cache=None):
 def forward(cfg: ArchConfig, params, batch, *, remat: bool = True):
     """Full-sequence forward -> logits (B, S, V) in f32. With `remat`, each
     layer's activations are recomputed in the backward pass."""
-    x = params["embed"][batch["tokens"]].to(cfg.param_dtype)
+    x = embed_lookup(params["embed"], batch["tokens"]).to(cfg.param_dtype)
+    x = constrain(x, DP_AXES, None, None)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
     for l, p in enumerate(params["layers"]):
@@ -210,7 +219,7 @@ def forward(cfg: ArchConfig, params, batch, *, remat: bool = True):
         else:
             x, _ = _layer(cfg, l, p, x, positions)
     x = rms_norm(x, params["ln_f"])
-    return _logits(params, x)
+    return constrain(_logits(params, x), DP_AXES, None, "model")
 
 
 def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True):
@@ -238,7 +247,7 @@ def init_caches(cfg: ArchConfig, B: int, max_seq: int, dtype, device=None):
 
 
 def prefill(cfg: ArchConfig, params, batch):
-    x = params["embed"][batch["tokens"]].to(cfg.param_dtype)
+    x = embed_lookup(params["embed"], batch["tokens"]).to(cfg.param_dtype)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
     caches = []
@@ -266,18 +275,28 @@ def decode_step(cfg: ArchConfig, params, token, caches, position):
     recurrent layers carry (h, conv). Returns (logits (B, V), new caches);
     the caches given are left as they are."""
     position = int(position)
-    x = params["embed"][token][:, None].to(cfg.param_dtype)
+    x = embed_lookup(params["embed"], token)[:, None].to(cfg.param_dtype)
     new_caches = []
     for l, p in enumerate(params["layers"]):
-        if "attn" in p:
-            # shift cache: always holds the last W keys in order
-            h, c = _attn_decode_windowed(cfg, p["attn"], x, position,
-                                         caches[l])
-        else:
-            h, c = _rec_block(cfg, p["rec"], x, state=caches[l])
-        x = x + h
+        x, c = _decode_layer(cfg, p, x, position, caches[l])
         new_caches.append(c)
-        f = p["ffn"]
-        x = x + ffn(rms_norm(x, f["ln"]), f["w1"], f["w3"], f["w2"], "swiglu")
     x = rms_norm(x, params["ln_f"])
     return _logits(params, x)[:, 0], new_caches
+
+
+def _decode_layer(cfg: ArchConfig, p, x, position: int, cache):
+    """One layer of a decode step; on DTensor activations each rank runs
+    its rows (`rows_region`)."""
+    if is_dtensor(x):
+        return rows_region(
+            lambda p_, x_, c_: _decode_layer(cfg, p_, x_, position, c_),
+            p, x, cache)
+    if "attn" in p:
+        # shift cache: always holds the last W keys in order
+        h, c = _attn_decode_windowed(cfg, p["attn"], x, position, cache)
+    else:
+        h, c = _rec_block(cfg, p["rec"], x, state=cache)
+    x = x + h
+    f = p["ffn"]
+    x = x + ffn(rms_norm(x, f["ln"]), f["w1"], f["w3"], f["w2"], "swiglu")
+    return x, c

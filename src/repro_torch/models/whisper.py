@@ -16,8 +16,9 @@ from __future__ import annotations
 
 import torch
 
-from .common import (ArchConfig, ParamDef, apply_rope, attention,
-                     checkpoint_layer, chunked_attention, ffn, rms_norm,
+from .common import (DP_AXES, ArchConfig, ParamDef, apply_rope, attention,
+                     checkpoint_layer, chunked_attention, constrain,
+                     embed_lookup, ffn, is_dtensor, rms_norm, rows_region,
                      softmax_xent)
 from .transformer import _logits, _write
 
@@ -99,7 +100,12 @@ def _mha(cfg, p, x, kv_x, *, causal, q_offset=0, kv_cache=None,
 
 
 def encode(cfg: ArchConfig, params, frames):
-    """frames: (B, S_enc, d) stub embeddings -> encoder states."""
+    """frames: (B, S_enc, d) stub embeddings -> encoder states. On DTensor
+    frames each rank encodes its rows (`rows_region`)."""
+    if is_dtensor(frames):
+        enc = {k: params[k] for k in ("frame_proj", "enc_pos", "encoder",
+                                      "ln_enc")}
+        return rows_region(lambda p_, f_: encode(cfg, p_, f_), enc, frames)
     x = frames.to(cfg.param_dtype) @ params["frame_proj"]
     x = x + params["enc_pos"][:x.shape[1]].to(x.dtype)[None]
     for p in params["encoder"]:
@@ -113,6 +119,15 @@ def encode(cfg: ArchConfig, params, frames):
 
 def _decoder_block(cfg, p, x, enc, q_offset=0, self_cache=None,
                    cross_cache=None):
+    if is_dtensor(x):   # each rank its rows (`rows_region`)
+        return rows_region(
+            lambda p_, x_, e_, s_, c_: _decoder_block(cfg, p_, x_, e_,
+                                                      q_offset, s_, c_),
+            p, x, enc, self_cache, cross_cache)
+    if enc is not None:
+        # the block takes the encoder states through one node, as the
+        # region does, so their gradient adds its parts in the same order
+        enc = enc.view_as(enc)
     h, new_self = _mha(cfg, p["attn"], rms_norm(x, p["attn"]["ln"]),
                        rms_norm(x, p["attn"]["ln"]), causal=True,
                        q_offset=q_offset, kv_cache=self_cache,
@@ -136,7 +151,7 @@ def forward(cfg: ArchConfig, params, batch, *, remat: bool = True):
     are recomputed in the backward pass (the encoder's are kept, as in the
     reference)."""
     enc = encode(cfg, params, batch["frames"])
-    x = params["embed"][batch["tokens"]].to(cfg.param_dtype)
+    x = embed_lookup(params["embed"], batch["tokens"]).to(cfg.param_dtype)
     for p in params["decoder"]:
         if remat:
             x = checkpoint_layer(
@@ -145,7 +160,7 @@ def forward(cfg: ArchConfig, params, batch, *, remat: bool = True):
         else:
             x, _, _ = _decoder_block(cfg, p, x, enc)
     x = rms_norm(x, params["ln_f"])
-    return _logits(params, x)
+    return constrain(_logits(params, x), DP_AXES, None, "model")
 
 
 def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True):
@@ -157,7 +172,7 @@ def prefill(cfg: ArchConfig, params, batch):
     """Encode + run the decoder prompt, returning (logits, caches) where
     caches = list of (self_k, self_v, cross_k, cross_v)."""
     enc = encode(cfg, params, batch["frames"])
-    x = params["embed"][batch["tokens"]].to(cfg.param_dtype)
+    x = embed_lookup(params["embed"], batch["tokens"]).to(cfg.param_dtype)
     caches = []
     for p in params["decoder"]:
         x, self_kv, cross_kv = _decoder_block(cfg, p, x, enc)
@@ -171,7 +186,7 @@ def decode_step(cfg: ArchConfig, params, token, caches, position):
     preallocated (B, S_max, G, hd) and left as they are. Returns
     (logits (B, V), new caches)."""
     position = int(position)
-    x = params["embed"][token][:, None].to(cfg.param_dtype)
+    x = embed_lookup(params["embed"], token)[:, None].to(cfg.param_dtype)
     new_caches = []
     for p, (sk, sv, ck, cv) in zip(params["decoder"], caches):
         x, (sk2, sv2), _ = _decoder_block(cfg, p, x, None, q_offset=position,

@@ -22,9 +22,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import (ArchConfig, ParamDef, associative_scan,
-                     checkpoint_layer, linear_recurrence, log_sigmoid,
-                     rms_norm, softmax_xent)
+from .common import (DP_AXES, ArchConfig, ParamDef, associative_scan,
+                     checkpoint_layer, constrain, embed_lookup, is_dtensor,
+                     linear_recurrence, log_sigmoid, rms_norm, rows_region,
+                     softmax_xent)
 from .transformer import _logits
 
 __all__ = ["param_defs", "prefill", "decode_step", "forward", "loss_fn",
@@ -236,6 +237,10 @@ def _slstm_decode(cfg: ArchConfig, p, x, state):
 # --------------------------- model ----------------------------------------
 
 def _apply_layer(cfg, p, x):
+    """One layer; on DTensor activations each rank runs its rows
+    (`rows_region`)."""
+    if is_dtensor(x):
+        return rows_region(lambda p_, x_: _apply_layer(cfg, p_, x_), p, x)
     if "kind_mlstm" in p:
         return x + _mlstm_parallel(cfg, p["kind_mlstm"], x)
     return x + _slstm_scan(cfg, p["kind_slstm"], x)
@@ -244,7 +249,8 @@ def _apply_layer(cfg, p, x):
 def forward(cfg: ArchConfig, params, batch, *, remat: bool = True):
     """Full-sequence forward -> logits (B, S, V) in f32. With `remat`, each
     layer's activations are recomputed in the backward pass."""
-    x = params["embed"][batch["tokens"]].to(cfg.param_dtype)
+    x = embed_lookup(params["embed"], batch["tokens"]).to(cfg.param_dtype)
+    x = constrain(x, DP_AXES, None, None)
     for p in params["layers"]:
         if remat:
             x = checkpoint_layer(lambda p_, x_: _apply_layer(cfg, p_, x_),
@@ -252,7 +258,7 @@ def forward(cfg: ArchConfig, params, batch, *, remat: bool = True):
         else:
             x = _apply_layer(cfg, p, x)
     x = rms_norm(x, params["ln_f"])
-    return _logits(params, x)
+    return constrain(_logits(params, x), DP_AXES, None, "model")
 
 
 def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True):
@@ -293,14 +299,23 @@ def prefill(cfg: ArchConfig, params, batch):
 def decode_step(cfg: ArchConfig, params, token, states, position):
     """One token through every layer's recurrent form. Returns
     (logits (B, V), new states); the states given are left as they are."""
-    x = params["embed"][token][:, None].to(cfg.param_dtype)
+    x = embed_lookup(params["embed"], token)[:, None].to(cfg.param_dtype)
     new_states = []
     for p, st in zip(params["layers"], states):
-        if "kind_mlstm" in p:
-            h, st2 = _mlstm_decode(cfg, p["kind_mlstm"], x, st)
-        else:
-            h, st2 = _slstm_decode(cfg, p["kind_slstm"], x, st)
-        x = x + h
+        x, st2 = _decode_layer(cfg, p, x, st)
         new_states.append(st2)
     x = rms_norm(x, params["ln_f"])
     return _logits(params, x)[:, 0], new_states
+
+
+def _decode_layer(cfg: ArchConfig, p, x, state):
+    """One layer's recurrent step; on DTensor activations each rank runs
+    its rows (`rows_region`)."""
+    if is_dtensor(x):
+        return rows_region(lambda p_, x_, s_: _decode_layer(cfg, p_, x_, s_),
+                           p, x, state)
+    if "kind_mlstm" in p:
+        h, st2 = _mlstm_decode(cfg, p["kind_mlstm"], x, state)
+    else:
+        h, st2 = _slstm_decode(cfg, p["kind_slstm"], x, state)
+    return x + h, st2

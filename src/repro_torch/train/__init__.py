@@ -1,6 +1,6 @@
-# Training layer on PyTorch: step assembly, optimizers, the billed data
-# pipeline, checkpointing and the fault-tolerant driver loop. The two
-# sharding names raise until sharding lands (ROADMAP queue 1, item 9).
+# Training layer on PyTorch: step assembly and the sharding of its state,
+# optimizers, the billed data pipeline, checkpointing and the
+# fault-tolerant driver loop.
 from .checkpoint import latest_step, load_checkpoint, save_checkpoint
 from .data import DataPipeline, ShardedTokenDataset
 from .driver import DriverConfig, FailureInjector, TrainDriver

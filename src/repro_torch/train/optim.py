@@ -12,7 +12,8 @@ Each is a pure function on trees (dicts, lists) of tensors: the caller's
 tensors are never written. The update runs in float32 whatever the
 storage dtype, each operation in the reference's order; `count` is an
 int32 0-d tensor and the bias corrections are `b ** count` in float32.
-The reference's `state_axes` (sharding) waits for ROADMAP queue 1, item 9.
+`state_axes` maps the parameters' logical axes to the state's, as the
+reference's (Adafactor's factored statistics drop an axis).
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ class Optimizer:
     cfg: OptimizerConfig
     init: Callable
     update: Callable
+    state_axes: Callable   # param logical axes -> state logical axes tree
 
 
 def _count(params) -> torch.Tensor:
@@ -87,7 +89,10 @@ def _adamw(cfg: OptimizerConfig) -> Optimizer:
         newp, newm, newv = _split(params, out, 3)
         return newp, {"m": newm, "v": newv, "count": c}
 
-    return Optimizer(cfg, init, update)
+    def state_axes(param_axes):
+        return {"m": param_axes, "v": param_axes, "count": None}
+
+    return Optimizer(cfg, init, update, state_axes)
 
 
 def _factored(cfg: OptimizerConfig, shape) -> bool:
@@ -142,7 +147,15 @@ def _adafactor(cfg: OptimizerConfig) -> Optimizer:
         newp, news = _split(params, out, 2)
         return newp, {"stats": news, "count": c}
 
-    return Optimizer(cfg, init, update)
+    def state_axes(param_axes):
+        def leaf_axes(axes, p):
+            if _factored(cfg, p.shape):
+                return {"vr": axes[:-1], "vc": axes[:-2] + axes[-1:]}
+            return {"v": axes}
+        # needs params for shapes; resolved in the trainer where both exist
+        return leaf_axes
+
+    return Optimizer(cfg, init, update, state_axes)
 
 
 def _sgd(cfg: OptimizerConfig) -> Optimizer:
@@ -155,7 +168,7 @@ def _sgd(cfg: OptimizerConfig) -> Optimizer:
             params, grads)
         return newp, {"count": state["count"] + 1}
 
-    return Optimizer(cfg, init, update)
+    return Optimizer(cfg, init, update, lambda axes: {"count": None})
 
 
 def make_optimizer(cfg: OptimizerConfig) -> Optimizer:

@@ -28,9 +28,14 @@ def test_import_loads_no_jax_and_no_repro():
             "repro_torch.serve, repro_torch.train, "
             "repro_torch.train.optim, repro_torch.train.trainer, "
             "repro_torch.train.checkpoint, repro_torch.train.data, "
-            "repro_torch.train.driver\n"
+            "repro_torch.train.driver, repro_torch.parallel, "
+            "repro_torch.launch, repro_torch.launch.dryrun, "
+            "repro_torch.launch.report\n"
+            "import torch.distributed as dist\n"
             "bad = sorted(m for m in sys.modules if m.startswith('jax') or "
             "m == 'repro' or m.startswith('repro.'))\n"
+            "if dist.is_initialized():\n"
+            "    bad.append('a process group was started')\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], env=_env(),

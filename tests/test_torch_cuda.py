@@ -663,3 +663,77 @@ def test_train_crash_resume_on_card_is_bit_identical(cuda, tmp_path,
         assert a.device.type == "cuda" and b.device.type == "cuda"
         assert torch.equal(a.reshape(-1).view(torch.uint8),
                            b.reshape(-1).view(torch.uint8))
+
+
+# ---------------------------------------------------------------------------
+# sharding: DTensor on a 1x1 mesh of the card, and the stacked layout
+
+_NCCL_STEP = """
+import json, sys, torch
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_mesh, start_process_group
+from repro_torch.models import get_model
+from repro_torch.models.common import set_activation_mesh, tree_leaves
+from repro_torch.parallel import batch_spec, distribute, make_rules
+from repro_torch.train import OptimizerConfig, make_optimizer, make_train_step
+from repro_torch.train.trainer import train_state_shardings
+arch, opt_name = sys.argv[1], sys.argv[2]
+start_process_group("nccl")
+mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+model = get_model(get_config(arch, smoke=True))
+opt = make_optimizer(OptimizerConfig(name=opt_name))
+rules = make_rules(mesh)
+ps, osd, _, _ = train_state_shardings(rules, model, opt)
+params = model.init(0, device="cuda")
+state = opt.init(params)
+toks = torch.randint(0, model.cfg.vocab_size, (4, 16),
+                     generator=torch.Generator().manual_seed(2)).cuda()
+batch = {"tokens": toks, "labels": toks}
+l0, p0, s0 = make_train_step(model, opt, microbatches=2)(params, state, batch)
+set_activation_mesh(mesh)
+step = make_train_step(model, opt, microbatches=2, grad_shardings=ps)
+l1, p1, s1 = step(distribute(params, ps), distribute(state, osd),
+                  distribute(batch, batch_spec(rules, batch)))
+print(json.dumps(dict(loss=[float(l0), float(l1)], equal=all(
+    torch.equal(a, b.full_tensor())
+    for a, b in zip(tree_leaves([p0, s0]), tree_leaves([p1, s1]))))))
+"""
+
+
+@pytest.mark.parametrize("arch,opt", [("phi4-mini-3.8b", "adafactor"),
+                                      ("qwen2-moe-a2.7b", "adamw")])
+def test_sharded_step_on_card_mesh_bit_equal(cuda, arch, opt):
+    """A smoke config's two-microbatch step with DTensor parameters on a
+    1x1 mesh of the card (an nccl group of one rank, in a subprocess: one
+    default group a process) against the plain step: loss and every new
+    leaf bit-equal."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    r = subprocess.run([sys.executable, "-c", _NCCL_STEP, arch, opt],
+                       capture_output=True, text=True, timeout=300, env=env)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["loss"][0] == out["loss"][1] and out["equal"]
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "qwen2-moe-a2.7b",
+                                  "kimi-k2-1t-a32b"])
+def test_stacked_loss_on_card_equals_loss_fn(cuda, arch):
+    """The scanned loss on the stacked layout equals `loss_fn` bit for bit
+    on the card, and the round trip between the layouts is exact."""
+    from repro_torch.models import transformer
+    from repro_torch.models.common import tree_leaves
+    model = get_model(get_config(arch, smoke=True))
+    params = model.init(0, device=cuda)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 32), device=cuda)
+    batch = {"tokens": toks, "labels": toks}
+    sp = transformer.params_to_stacked(model.cfg, params)
+    assert torch.equal(transformer.loss_fn_scanned(model.cfg, sp, batch),
+                       model.loss_fn(params, batch))
+    back = transformer.stacked_to_params(model.cfg, sp)
+    for a, b in zip(tree_leaves(params), tree_leaves(back)):
+        assert torch.equal(a, b)

@@ -1,8 +1,8 @@
 """The port's copies of the host layers (obs, egress, online, fleet, configs,
-the training data pipeline) against their originals: the source is the
-same program once the `repro.` imports read `repro_torch.` (compared by
-AST), and the same access stream through either package bills, hits and
-audits alike."""
+the training data pipeline, the dry-run's report) against their
+originals: the source is the same program once the `repro.` imports read
+`repro_torch.` (compared by AST), and the same access stream through
+either package bills, hits and audits alike."""
 import ast
 import dataclasses
 import pathlib
@@ -31,6 +31,7 @@ COPIES = [f"{pkg}/{name}.py" for pkg, names in [
                  "qwen2_vl_72b", "recurrentgemma_9b", "whisper_large_v3",
                  "xlstm_125m"]),
     ("train", ["data"]),
+    ("launch", ["report"]),
 ] for name in names]
 
 

@@ -252,16 +252,29 @@ def test_train_step_leaves_the_callers_tensors_alone():
 
 
 def test_sharding_names_raise():
+    """The sharding names are ported (tests/test_torch_sharding.py holds
+    them to the reference's specs); what they refuse: an optimizer they do
+    not know, and `grad_shardings` on parameters that are not DTensors."""
+    from repro_torch.parallel import make_rules
     from repro_torch.train import (make_train_step as mts,
                                    opt_state_sharding,
                                    train_state_shardings)
-    rm, _, tm, _ = parity.models("xlstm-125m", "float32")
+    rm, _, tm, tp = parity.models("xlstm-125m", "float32")
+
+    class Mesh:
+        shape, axis_names = {"data": 2, "model": 2}, ("data", "model")
+    rules = make_rules(Mesh())
     opt = optim.make_optimizer(optim.OptimizerConfig())
-    for call in (lambda: opt_state_sharding(None, opt, None, None),
-                 lambda: train_state_shardings(None, tm, opt),
-                 lambda: mts(tm, opt, grad_shardings={})):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            call()
+    ps, osd, ap, aos = train_state_shardings(rules, tm, opt)
+    assert all(t.device.type == "meta" for t in tree_leaves([ap, aos]))
+    assert set(osd) == {"m", "v", "count"}
+    bad = dataclasses.replace(opt, cfg=dataclasses.replace(opt.cfg,
+                                                            name="lion"))
+    with pytest.raises(ValueError, match="lion"):
+        opt_state_sharding(rules, bad, ap, tm.axes())
+    jb, tb = train_batches(rm.cfg, 2, 16, seed=3)
+    with pytest.raises(TypeError, match="DTensor"):
+        mts(tm, opt, grad_shardings=ps)(tp, opt.init(tp), tb)
 
 
 def test_train_inputs_match_reference():
