@@ -7,17 +7,22 @@ toolkit. Its phases, in order, each printing one JSON line:
 
 * `kernel_checks`: build the CUDA kernels from
   `src/repro_torch/kernels/csrc` and hold each against its plain PyTorch
-  version on the card.
+  version on the card (`replay_scan` on the grids of
+  `tests/_replay_cases.py`, a grid past 132 cells and one whose slot table
+  moves to device memory).
 * `replay_parity`, `regret`, `opt_occupancy`: replay the paper's (policy x
-  price vector x budget) grid on a 20k-request trace on the card with
-  kernels, on the card without, and on the CPU (the three grids must be
-  bit-equal), score the dollars against the exact optimum, and check the
-  optimum's schedules through the occupancy scan.
+  price vector x budget) grid on a 20k-request trace on the card through
+  `replay_scan`, through the step loop with `evict_argmin` (the trajectory
+  path's loop, over the whole grid), through the plain step loop, and on
+  the CPU (the four grids must be bit-equal), score the dollars against
+  the exact optimum, and check the optimum's schedules through the
+  occupancy scan.
 * `costfoo_cdn`: bracket the dollar-optimum of a 200k-request
   variable-size CDN trace with cost-FOO, its rounded schedule checked on
   the card, the bracket equal to a CPU run's.
 * `replay_full`, `replay_profile`: the full-size sweep (200k requests, 20k
-  objects, 96 cells) through the kernels, and where its step's time goes.
+  objects, 96 cells) through `next_use` and `replay_scan`, bit-equal to the
+  plain step loop on the card, and where its time goes.
 * `serve`, `serve_numerics`, `serve_profile`: phi4-mini-3.8b at full width
   through the egress-billed, governed engine, its bill held bit for bit
   against a host-only replay; decode against prefill and the card against
@@ -82,6 +87,8 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
 
 # PyTorch's deterministic algorithms (the training phases) need cuBLAS's
 # workspace fixed before CUDA starts: 32 MiB, PyTorch's default for an
@@ -96,6 +103,8 @@ from repro_torch.core import (PRICE_VECTORS, Trace, cost_foo,  # noqa: E402
                               exact_opt_uniform, exact_opt_uniform_sweep,
                               interval_deltas, miss_costs, regret, simulate,
                               sweep_torch, twemcache_like, wiki_cdn_like)
+from repro_torch.core.policies_torch import (_replay,  # noqa: E402
+                                             stack_policy_weights)
 from repro_torch.core.trace import next_use_indices  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.egress import EgressCache, ObjectStore  # noqa: E402
@@ -129,6 +138,10 @@ from repro_torch.kernels.interval_occupancy import (  # noqa: E402
     error_chain, interval_occupancy_cuda, occupancy_feasible_cuda)
 from repro_torch.kernels.next_use import (digit_passes,  # noqa: E402
                                           next_use_cuda, plan)
+from repro_torch.kernels.replay_scan import (frequency_rank,  # noqa: E402
+                                             replay_scan_cuda)
+from repro_torch.kernels import replay_scan as replay_scan_module  # noqa: E402
+import _replay_cases  # noqa: E402  (tests/: the replay kernel's edge cases)
 
 # the module (the package's `cost_foo` names the function)
 cost_foo_module = importlib.import_module("repro_torch.core.cost_foo")
@@ -166,6 +179,12 @@ KERNEL_INFO = {
         route="cuda", source="src/repro_torch/kernels/csrc/occupancy_scan.cu",
         replaces="src/repro/kernels/interval_occupancy.py:50",
         replaces_function="interval_occupancy_pallas"),
+    "replay_scan": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/replay_scan.cu",
+        replaces="src/repro/core/policies_jax.py:97",
+        replaces_function="_simulate's lax.scan (with evict_argmin_pallas "
+                          "inside), vmapped by sweep_jax "
+                          "(src/repro/core/policies_jax.py:233)"),
 }
 TOLERANCE = {
     "evict_argmin": "exact",
@@ -176,6 +195,10 @@ TOLERANCE = {
                           "one float32 rounding of occ - zcap",
 }
 TOLERANCE["interval_occupancy"] = TOLERANCE["occupancy_feasible"]
+TOLERANCE["replay_scan"] = "exact: dollars and hits bit-equal"
+SCORE_OPS = 7   # float32 operations a scored slot: next use to float, the
+                # gap, its max with 1, size * gap, the quotient, w_cb's
+                # product, the sum (the compare not counted)
 
 
 
@@ -474,6 +497,79 @@ def next_use_checks(seed: int, rng, dev, errs: dict, cases: list) -> dict:
     return plans
 
 
+def replay_inputs(weights, ids, costs, sizes, budgets, dev) -> dict:
+    """replay_scan's arguments on the card, next(t) from the plain version
+    (no launch is counted outside a path)."""
+    ids_t = torch.tensor(np.asarray(ids, np.int32), device=dev)
+    costs_t = torch.tensor(np.asarray(costs, np.float32), device=dev)
+    return dict(
+        weights=torch.tensor(np.asarray(weights, np.float32), device=dev),
+        ids=ids_t, nxt=ref.next_use_ref(ids_t, costs_t.shape[1]),
+        rank=torch.tensor(frequency_rank(ids), device=dev), costs=costs_t,
+        sizes=torch.tensor(np.asarray(sizes, np.float32), device=dev),
+        budgets=torch.tensor(np.asarray(budgets, np.int32), device=dev))
+
+
+def replay_plain(x: dict):
+    """replay_scan's plain version, the step loop, on the same inputs."""
+    d, h, _ = _replay(x["weights"], x["ids"].cpu().numpy(),
+                      x["nxt"].cpu().numpy(), x["costs"], x["sizes"],
+                      x["budgets"], use_kernel=False)
+    return d, h
+
+
+def replay_scan_checks(seed: int, dev, errs: dict, cases: list) -> dict:
+    """replay_scan against the step loop on the card, bit for bit, twice
+    with equal bits: the edge grids of tests/_replay_cases.py (six policies,
+    a mixed and a reversed-Belady row, budgets 0, 1, 7, N, past N; power-of-
+    two and lognormal costs, c/s overflowing into NaN scores, ties the
+    touch breaks), the lognormal grid tripled to 240 cells (past the
+    132 SMs), and N = 2^17 objects, whose map and, past 9,000-odd slots, the
+    slot table live in device memory. Returns each case's work counters."""
+    rng = np.random.default_rng(seed + 7)
+    inputs = [(name, _replay_cases.make(name, seed))
+              for name in _replay_cases.CASES]
+    c = _replay_cases.make("lognormal", seed)
+    inputs.append(("240 cells", dict(c, weights=np.concatenate(
+        [c["weights"]] * 3))))
+    N, T = 2**17, 20_000
+    inputs.append((f"N=2^17 T={T}, map and slot table in device memory", dict(
+        weights=_replay_cases.weights()[[0, 4, 7]],
+        ids=rng.integers(0, N, T), costs=rng.lognormal(-12.0, 1.5, (1, N)),
+        sizes=np.ones(N), budgets=np.array([N, 12_000]))))
+    work = {}
+    for label, c in inputs:
+        x = replay_inputs(c["weights"], c["ids"], c["costs"], c["sizes"],
+                          c["budgets"], dev)
+        d, h, w = replay_scan_cuda(**x)
+        d2, h2, w2 = replay_scan_cuda(**x)
+        pd, ph = replay_plain(x)
+        torch.cuda.synchronize()
+        check(same_bits(d, pd) and torch.equal(h, ph),
+              f"replay_scan differs from the step loop: {label}")
+        check(same_bits(d, d2) and torch.equal(h, h2) and torch.equal(w, w2),
+              f"two replay_scan calls differ: {label}")
+        errs["replay_scan"] = max(errs["replay_scan"],
+                                  float((d - pd).abs().max()),
+                                  float((h - ph).abs().max()))
+        layout = replay_scan_module.plan(
+            d.numel(), x["costs"].shape[1],
+            _build.library().replay_scan_shared_limit())
+        work[label] = dict(cells=d.numel(),
+                           scored_steps=int(w[..., 0].sum()),
+                           slots_scored=int(w[..., 1].sum()),
+                           peak_slots=int(w[..., 2].max()),
+                           map_shared=layout["map_shared"],
+                           slots_shared=layout["slots_shared"])
+        cases.append(f"replay_scan {label}")
+    spill = work[inputs[-1][0]]
+    check(not spill["map_shared"]
+          and spill["peak_slots"] > spill["slots_shared"]
+          and spill["scored_steps"] > 0,
+          f"the device-memory case kept its table in shared memory: {spill}")
+    return work
+
+
 def phase_kernel_checks(seed: int, dev) -> dict:
     rng = np.random.default_rng(seed)
     errs = {name: 0.0 for name in ops.KERNELS}
@@ -546,10 +642,11 @@ def phase_kernel_checks(seed: int, dev) -> dict:
     nu_plans = next_use_checks(seed, rng, dev, errs, cases)
     scan_bytes = scan_checks(rng, dev, errs, cases)
     scan_deep_checks(rng, dev, errs, cases)
+    replay_work = replay_scan_checks(seed, dev, errs, cases)
     emit("kernel_checks", cases=cases, max_abs_err=errs,
          scan_byte_sizes=scan_bytes,
          scan_error_chain={T: error_chain(T) for T in SCAN_T},
-         next_use_plans=nu_plans)
+         next_use_plans=nu_plans, replay_scan_work=replay_work)
     return errs
 
 
@@ -557,29 +654,57 @@ def price_matrix(tr: Trace) -> np.ndarray:
     return np.stack([miss_costs(tr.sizes, PRICE_VECTORS[p]) for p in PRICES])
 
 
-def phase_replay_parity(seed: int) -> tuple[Trace, np.ndarray, np.ndarray]:
+def phase_replay_parity(seed: int, dev) -> tuple:
+    """The 20k grid four ways, bit-equal: sweep_torch through replay_scan
+    (the main path), the step loop with the evict_argmin kernel (the
+    trajectory path of `_simulate(trace_steps=True)`, over the whole grid;
+    its launches are evict_argmin's on its path), sweep_torch's plain step
+    loop on the card, and the CPU."""
     tr = twemcache_like(n_objects=2000, n_requests=20000, seed=seed)
     cm = price_matrix(tr)
-    kw = dict(num_objects=tr.num_objects, sizes=tr.sizes)
-    grids, secs = {}, {}
-    for label, extra in [("cuda_kernel", dict(device="cuda")),
+    kw = dict(num_objects=tr.num_objects, sizes=tr.sizes, return_hits=True)
+    grids, secs, launches = {}, {}, {}
+    for label, extra in [("replay_scan", dict(device="cuda")),
+                         ("step_loop_evict_argmin", None),
                          ("cuda_plain", dict(device="cuda", use_kernel=False)),
                          ("cpu", dict(device="cpu"))]:
         prof = {}
-        grids[label] = sweep_torch(POLICIES, tr.ids, cm, PARITY_BUDGETS,
-                                   profile=prof, **kw, **extra)
+        ops.reset_launch_counts()
+        if extra is None:
+            t0 = time.perf_counter()
+            x = replay_inputs(stack_policy_weights(POLICIES), tr.ids, cm,
+                              tr.sizes, PARITY_BUDGETS, dev)
+            d, h, _ = _replay(x["weights"], tr.ids, x["nxt"].cpu().numpy(),
+                              x["costs"], x["sizes"], x["budgets"],
+                              use_kernel=True)
+            grids[label] = (d.cpu().numpy(), h.cpu().numpy())
+            prof["execute_s"] = time.perf_counter() - t0
+        else:
+            grids[label] = sweep_torch(POLICIES, tr.ids, cm, PARITY_BUDGETS,
+                                       profile=prof, **kw, **extra)
+        launches[label] = ops.launch_counts()
         secs[label] = prof["execute_s"]
-    ref_grid = grids["cpu"]
+    T = tr.num_requests
+    check(launches["replay_scan"] == {**NO_LAUNCHES, "replay_scan": 1,
+                                      "next_use": 1},
+          f"replay_scan path launches {launches['replay_scan']}")
+    check(launches["step_loop_evict_argmin"]
+          == {**NO_LAUNCHES, "evict_argmin": T},
+          f"step loop launches {launches['step_loop_evict_argmin']}")
+    ref_grid, ref_hits = grids["cpu"]
     check(ref_grid.shape == (6, 4, 4) and np.isfinite(ref_grid).all(),
           "replay grid has the wrong shape or non-finite dollars")
-    for label in ("cuda_kernel", "cuda_plain"):
-        check(np.array_equal(grids[label], ref_grid),
+    for label in ("replay_scan", "step_loop_evict_argmin", "cuda_plain"):
+        d, h = grids[label]
+        check(np.array_equal(d.view(np.int32), ref_grid.view(np.int32))
+              and np.array_equal(h, ref_hits),
               f"{label} grid differs from the CPU grid: max gap "
-              f"{float(np.abs(grids[label] - ref_grid).max())}")
+              f"{float(np.abs(d - ref_grid).max())}")
     emit("replay_parity", trace="twemcache_like", n_objects=tr.num_objects,
-         n_requests=tr.num_requests, grid=list(ref_grid.shape),
-         bit_equal=True, execute_s=secs)
-    return tr, cm, ref_grid
+         n_requests=T, grid=list(ref_grid.shape), bit_equal=True,
+         execute_s=secs, launches=launches)
+    return (tr, cm, ref_grid, launches["step_loop_evict_argmin"],
+            secs["cuda_plain"])
 
 
 def phase_regret(tr: Trace, cm: np.ndarray, grid: np.ndarray) -> None:
@@ -705,20 +830,24 @@ def phase_costfoo_cdn(seed: int, dev) -> dict:
 
 
 def phase_replay_full(seed: int) -> dict:
+    """The main path at full size: the 96-cell sweep of 200k requests over
+    20k objects through next_use and replay_scan, one launch each, its hits
+    held against the host heap replay; then the plain step loop on the card
+    once (the kernel's plain version at this shape, bit-equal and timed)."""
     tr = twemcache_like(n_objects=20000, n_requests=200_000, seed=seed)
     cm = price_matrix(tr)
     T = tr.num_requests
+    kw = dict(num_objects=tr.num_objects, sizes=tr.sizes, return_hits=True)
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     prof = {}
     dollars, hits = sweep_torch(POLICIES, tr.ids, cm, FULL_BUDGETS,
-                                num_objects=tr.num_objects, sizes=tr.sizes,
-                                profile=prof, return_hits=True)
+                                profile=prof, **kw)
     launches = ops.launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    check(launches == {**NO_LAUNCHES, "evict_argmin": T, "next_use": 1},
-          f"main path launches {launches}, expected evict_argmin={T}, "
-          "next_use=1 and no scan")
+    check(launches == {**NO_LAUNCHES, "replay_scan": 1, "next_use": 1},
+          f"main path launches {launches}, expected replay_scan=1, "
+          "next_use=1 and no other kernel")
     check(dollars.shape == (6, 4, 4) and np.isfinite(dollars).all(),
           "full grid has the wrong shape or non-finite dollars")
     p, k = PRICES.index("s3_internet"), 1
@@ -733,50 +862,112 @@ def phase_replay_full(seed: int) -> dict:
               f"(s3_internet, B={B})")
         host[pol] = dict(hits=r.hits, dollars=r.dollars,
                          rel_dollar_gap=float(dollars[q, p, k]) / r.dollars - 1)
+    plain_prof = {}
+    plain_d, plain_h = sweep_torch(POLICIES, tr.ids, cm, FULL_BUDGETS,
+                                   use_kernel=False, profile=plain_prof, **kw)
+    check(np.array_equal(plain_d.view(np.int32), dollars.view(np.int32))
+          and np.array_equal(plain_h, hits),
+          "replay_scan's full grid differs from the plain step loop's")
     steps_per_s = T / prof["execute_s"]
     emit("replay_full", trace="twemcache_like", n_objects=tr.num_objects,
          n_requests=T, cells=prof["cells"], budgets=FULL_BUDGETS.tolist(),
          compile_s=prof["compile_s"], execute_s=prof["execute_s"],
          steps_per_s=steps_per_s, cell_steps_per_s=steps_per_s * prof["cells"],
          launches=launches, peak_device_gib=peak_gib,
-         host_check_s3_internet_B640=host)
-    return dict(launches=launches, trace=tr, execute_s=prof["execute_s"])
+         host_check_s3_internet_B640=host,
+         plain_step_loop_execute_s=plain_prof["execute_s"],
+         plain_bit_equal=True)
+    return dict(launches=launches, trace=tr, cm=cm,
+                execute_s=prof["execute_s"],
+                plain_execute_s=plain_prof["execute_s"])
 
 
-def phase_replay_profile(tr: Trace, full_execute_s: float,
-                         steps: int = 400) -> None:
-    """Where a step's time goes at full width: a torch.profiler trace of the
-    sweep over the trace's first `steps` requests (all 96 cells, all
-    objects). Device time per step is set against the unprofiled step time
-    of `replay_full` to give the device's busy share."""
+def phase_replay_profile(full: dict, tries: int = 3) -> dict:
+    """Where replay_full's time goes. A torch.profiler trace of the full
+    sweep after a warm-up call (the profiler's schedule records a warm-up
+    round first and `profiler_primer` opens the recorded one, as in
+    `device_time`), retaken when it lost the replay_scan kernel's event:
+    the device time of each kernel and copy, against replay_full's
+    unprofiled execute_s for the device's busy share.
+    Then the host's parts, each timed alone and synchronised: the frequency
+    rank, the uploads, next(t), the kernel's window and the copy back.
+    Returns the kernel's device time, which the kernel line's full-shape
+    row takes: `device_time` of the kernel alone, late in the script, came
+    back with no event in every try."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    cm = price_matrix(tr)
-    kw = dict(num_objects=tr.num_objects, sizes=tr.sizes)
-    sweep_torch(POLICIES, tr.ids[:50], cm, FULL_BUDGETS, **kw)   # warm-up
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile, schedule
+    tr, cm = full["trace"], full["cm"]
+    N = tr.num_objects
+
+    def sweep():
+        sweep_torch(POLICIES, tr.ids, cm, FULL_BUDGETS, num_objects=N,
+                    sizes=tr.sizes)
+
+    sweep()
+    for attempt in range(1, tries + 1):
+        traces, walls = [], []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: traces.append(
+                         p.key_averages())) as prof:
+            for rnd in range(2):        # warm-up round, recorded round
+                if rnd:
+                    profiler_primer()
+                t0 = time.perf_counter()
+                sweep()
+                walls.append(time.perf_counter() - t0)
+                prof.step()
+        on_card = [e for e in (traces[-1] if traces else [])
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0
+                   and not e.key.startswith("ProfilerStep")
+                   and not primer_event(e.key)]
+        scan = [e for e in on_card if "replay_scan" in e.key]
+        if len(scan) == 1 and scan[0].count == 1:
+            break
+    check(len(scan) == 1 and scan[0].count == 1,
+          f"the profiler lost replay_scan's event in {tries} tries")
+    device_ms = {}
+    for e in on_card:
+        name = e.key.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].removeprefix("void ").strip()[-80:]
+        device_ms[name] = (device_ms.get(name, 0.0)
+                           + e.self_device_time_total / 1e3)
+    kernel_ms = scan[0].self_device_time_total / 1e3
+    dev = torch.device("cuda")
+
+    def timed(fn):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sweep_torch(POLICIES, tr.ids[:steps], cm, FULL_BUDGETS, **kw)
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
-    on_host = [e for e in events if e.device_type == DeviceType.CPU]
-    device_ms = sum(e.self_device_time_total for e in on_card) / 1e3 / steps
-    step_ms = full_execute_s / tr.num_requests * 1e3
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
 
-    def top(evs, key, n):
-        evs = sorted(evs, key=key, reverse=True)[:n]
-        return [[e.key, e.count / steps, key(e) / steps] for e in evs]
-
-    emit("replay_profile", steps=steps, profiled_wall_ms_per_step=wall / steps
-         * 1e3, unprofiled_ms_per_step=step_ms,
-         device_ms_per_step=device_ms if on_card else "not measured",
-         device_busy_share=device_ms / step_ms if on_card else "not measured",
-         device_events_per_step=sum(e.count for e in on_card) / steps,
-         top_device_us_per_step=top(on_card, lambda e: e.self_device_time_total,
-                                    8),
-         top_host_us_per_step=top(on_host, lambda e: e.self_cpu_time_total, 10))
+    rank, rank_s = timed(lambda: frequency_rank(tr.ids))
+    x, upload_s = timed(lambda: dict(
+        weights=torch.tensor(stack_policy_weights(POLICIES), device=dev),
+        ids=torch.tensor(tr.ids.astype(np.int32), device=dev),
+        rank=torch.tensor(rank, device=dev),
+        costs=torch.tensor(cm.astype(np.float32), device=dev),
+        sizes=torch.tensor(tr.sizes.astype(np.float32), device=dev),
+        budgets=torch.tensor(FULL_BUDGETS.astype(np.int32), device=dev)))
+    nxt, next_use_s = timed(lambda: next_use_cuda(x["ids"], N))
+    (d, h, _), kernel_s = timed(lambda: replay_scan_cuda(nxt=nxt, **x))
+    _, copy_s = timed(lambda: (d.cpu().numpy(), h.cpu().numpy()))
+    total_ms = sum(device_ms.values())
+    emit("replay_profile", n_requests=tr.num_requests, cells=d.numel(),
+         execute_s_unprofiled=full["execute_s"], profiled_wall_s=walls[-1],
+         tries=attempt, device_ms=device_ms, device_ms_total=total_ms,
+         replay_scan_device_ms=kernel_ms,
+         device_busy_share=total_ms / 1e3 / full["execute_s"],
+         replay_scan_share=kernel_ms / 1e3 / full["execute_s"],
+         host_parts_s=dict(frequency_rank=rank_s, uploads=upload_s,
+                           next_use=next_use_s, replay_scan_window=kernel_s,
+                           copy_back=copy_s),
+         host_parts_note="each part alone, synchronised; sweep_torch runs "
+                         "them in this order")
+    return dict(ms=kernel_ms, kernels={"replay_scan_kernel": kernel_ms})
 
 
 L2_FLUSH_BYTES = 256 << 20   # five times the H100's 50 MB L2
@@ -798,6 +989,22 @@ class L2Flush:
         return "bitwise_not" in kernel_name
 
 
+def profiler_primer() -> None:
+    """Open a recorded round with work no sum counts. A trace drops the
+    first kernels after its start now and then (one call's flush and scan
+    init, but not its scan, in each of three tries of one cold row), so a
+    recorded round starts after a 10 ms pause and four spin kernels
+    (`spin_kernel`, left out of every sum)."""
+    time.sleep(0.01)
+    for _ in range(4):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+def primer_event(key: str) -> bool:
+    return "spin_kernel" in key
+
+
 def device_time(fn, reps: int = 20, flush: L2Flush | None = None,
                 tries: int = 3) -> dict:
     """Device time per call of the kernels `fn` launches, in all and by
@@ -809,10 +1016,11 @@ def device_time(fn, reps: int = 20, flush: L2Flush | None = None,
     The profiler loses the first events of a trace (a fast kernel read 18
     of 20 calls), which reads as a kernel faster than the card; so each
     trace records a second round of `reps` calls after a warm-up round
-    (the profiler's own schedule). Every function timed here launches the
+    (the profiler's own schedule), opened by `profiler_primer`. Every
+    function timed here launches the
     same kernels on every call, so each name's count of events must be a
-    multiple of `reps`: a trace that still lost events is taken again, up
-    to `tries` times."""
+    multiple of `reps`: a trace that still lost events, or held none of
+    fn's kernels, is taken again, up to `tries` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
@@ -825,7 +1033,9 @@ def device_time(fn, reps: int = 20, flush: L2Flush | None = None,
                                        repeat=1),
                      on_trace_ready=lambda p: traces.append(
                          p.key_averages())) as prof:
-            for _ in range(2):          # warm-up round, recorded round
+            for rnd in range(2):        # warm-up round, recorded round
+                if rnd:
+                    profiler_primer()
                 for _ in range(reps):
                     if flush is not None:
                         flush()
@@ -836,7 +1046,8 @@ def device_time(fn, reps: int = 20, flush: L2Flush | None = None,
         for e in (traces[-1] if traces else []):
             if (e.device_type != DeviceType.CUDA
                     or e.self_device_time_total <= 0
-                    or e.key.startswith("ProfilerStep")):   # step marker
+                    or e.key.startswith("ProfilerStep")   # step marker
+                    or primer_event(e.key)):
                 continue
             if flush is not None and L2Flush.owns(e.key):
                 flushes += e.count
@@ -846,20 +1057,81 @@ def device_time(fn, reps: int = 20, flush: L2Flush | None = None,
             by_name[name] = by_name.get(name, 0.0) + \
                 e.self_device_time_total / 1e3 / reps
             counts[name] = counts.get(name, 0) + e.count
-        complete = (bool(traces)
+        complete = (bool(counts)
                     and all(n % reps == 0 for n in counts.values())
                     and (flush is None or flushes == reps))
         if complete:
             break
+    if not counts:     # no try's trace held a kernel of fn
+        return dict(ms="not measured", kernels={})
     check(complete, f"the profiler kept {counts} kernel events and {flushes} "
           f"flushes of {reps} calls in {tries} tries")
-    if not by_name:
-        return dict(ms="not measured", kernels={})
     return dict(ms=sum(by_name.values()), kernels=by_name)
 
 
+def replay_scan_rows(dev, errs: dict, launches: dict, shapes: list) -> list:
+    """replay_scan's rows at the parity and the full shape: the kernel
+    alone on inputs already on the card (window `ms` over back-to-back
+    calls, `device_ms` from the profiler: `device_time` at the parity
+    shape, the main path's own trace in replay_profile at the full one,
+    where `device_time` came back empty), beside the plain step loop's
+    execute_s at the same shape (`plain_ms`: one call in replay_parity or
+    replay_full, host clock, synchronised; its device time is not
+    profiled: tens of thousands of steps of ~46 ops). The bound counts
+    this data's work: each input read once and each output written once,
+    and SCORE_OPS float32 operations a scored slot, from the kernel's own
+    counters, against 67 TFLOP/s."""
+    rows = []
+    for label, tr, cm, budgets, plain_s, reps, on_card in shapes:
+        x = replay_inputs(stack_policy_weights(POLICIES), tr.ids, cm,
+                          tr.sizes, budgets, dev)
+
+        def kernel(x=x):
+            return replay_scan_cuda(**x)
+
+        _, _, work = kernel()
+        Q, (P, N), K, T = len(POLICIES), cm.shape, len(budgets), \
+            tr.num_requests
+        C = Q * P * K
+        nbytes = 3 * 4 * T + 24 * Q + 4 * P * N + 4 * N + 4 * K + C * 32
+        slots = int(work[..., 1].sum())
+        flops = SCORE_OPS * slots
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / F32_PEAK_FLOPS * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        device_note = "replay_profile's trace of the sweep (the kernel alone)"
+        if on_card is None:
+            on_card = device_time(kernel, reps=reps)
+            device_note = "device_time: the kernel and the wrapper's ops"
+        rows.append(dict(
+            name="replay_scan", **KERNEL_INFO["replay_scan"],
+            launches=launches["replay_scan"], max_abs_err=errs["replay_scan"],
+            tolerance=TOLERANCE["replay_scan"],
+            ms=time_ms(kernel, reps=reps, rounds=5), plain_ms=plain_s * 1e3,
+            plain_note="the plain step loop's execute_s (next(t), the loop, "
+                       "the copy back) in " + label,
+            device_ms=on_card["ms"], device_kernels=on_card["kernels"],
+            device_note=device_note, plain_device_ms="not measured",
+            l2="warm",
+            bound_ms=bound_ms,
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            bound_share=(bound_ms / on_card["ms"] if on_card["kernels"]
+                         else "not measured"),
+            bound_note=f"max({nbytes} bytes over 3.35 TB/s, {flops} float32 "
+                       f"operations ({slots} slots scored x {SCORE_OPS}) "
+                       "over 67 TFLOP/s)",
+            library_ms=None, library_call=None,
+            library_note="none: no single PyTorch call replays a cache",
+            shape=dict(T=T, N=N, cells=C, budgets=[int(b) for b in budgets],
+                       data=f"twemcache_like, {label}",
+                       scored_steps=int(work[..., 0].sum()),
+                       slots_scored=slots,
+                       peak_slots=int(work[..., 2].max()))))
+    return rows
+
+
 def phase_kernels(seed: int, dev, errs: dict, launches: dict,
-                  tr: Trace, schedule: dict) -> None:
+                  tr: Trace, schedule: dict, replay_shapes: list) -> None:
     """Time each kernel at the main path's shapes beside its plain version
     and its bound.
 
@@ -867,10 +1139,11 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
     back-to-back calls (what a caller sees, host work between launches
     included); `device_ms`, `plain_device_ms` and `library_device_ms` are
     the profiler's device time per call, and `device_kernels` splits the
-    kernel's by device kernel. evict_argmin gets the replay's steady
-    state: 96 cell rows of the full trace's objects, each row with as many
-    cached entries as its cell's budget less one (the requested object is
-    masked out), one shared touch row. Its bound counts what that data
+    kernel's by device kernel. evict_argmin gets the step loop's steady
+    state on replay_full's trace (its path, the step loop of
+    `_simulate(trace_steps=True)`, runs at any size): 96 cell rows of the full trace's objects, each row
+    with as many cached entries as its cell's budget less one (the
+    requested object is masked out), one shared touch row. Its bound counts what that data
     needs: every mask byte, the score of each cached entry, the touch row
     and the outputs. Inputs are warm in L2, as in the replay, where the op
     just before wrote the scores. next_use reads each id once and writes
@@ -883,7 +1156,8 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
     2.4 MB, warm in L2) and again at T = 2^26
     (256 MiB an array, cold), where bytes and not launches should set the
     time; their bound is 12*T bytes (deltas, zcap, occ) for
-    occupancy_feasible and 8*T for interval_occupancy. In the rows labelled
+    occupancy_feasible and 8*T for interval_occupancy. replay_scan's rows
+    come from `replay_scan_rows`. In the rows labelled
     cold every profiled call (kernel, plain, library and yardsticks) finds
     the L2 flushed (`L2Flush`, left out of the device time), and no cold
     row may read more than 1.05 of its byte bound."""
@@ -999,6 +1273,7 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
             library_call="torch.cumsum" if library else None, shape=shape,
             **extra))
     del d26, z26, ids22, ids26
+    rows += replay_scan_rows(dev, errs, launches, replay_shapes)
     print(json.dumps({"kernels": rows}), flush=True)
 
 
@@ -3232,28 +3507,40 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.perf_counter()
     _build.library()
+    log = next(_build.BUILD_ROOT.glob("*/" + _build.PTXAS_LOG), None)
     emit("build", seconds=time.perf_counter() - t0,
-         nvcc_flags=list(_build.NVCC_FLAGS))
+         nvcc_flags=list(_build.NVCC_FLAGS),
+         ptxas_replay_scan=(log.read_text().split("== replay_scan.cu")[-1]
+                            .strip().splitlines() if log else "no log"))
     errs = phase_kernel_checks(args.seed, dev)
-    tr, cm, grid = phase_replay_parity(args.seed)
+    tr, cm, grid, loop_launches, parity_s = phase_replay_parity(args.seed,
+                                                                dev)
     phase_regret(tr, cm, grid)
     opt_launches = phase_opt_occupancy(tr, cm, dev)
     cdn = phase_costfoo_cdn(args.seed, dev)
     full = phase_replay_full(args.seed)
-    phase_replay_profile(full["trace"], full["execute_s"])
+    full_profile = phase_replay_profile(full)
     phase_serving(args.seed, dev)
     phase_moe_serving(args.seed, dev)
     phase_families(args.seed, dev)
     dense = phase_training(args.seed, dev)
     phase_sharding(args.seed, dev, dense)
     # each kernel's launches on its own path, counted from 0 around it
-    launches = {"evict_argmin": full["launches"]["evict_argmin"],
+    launches = {"evict_argmin": loop_launches["evict_argmin"],
                 "next_use": full["launches"]["next_use"],
                 "interval_occupancy": opt_launches["interval_occupancy"],
-                "occupancy_feasible": cdn["launches"]["occupancy_feasible"]}
-    check(all(n > 0 for n in launches.values()),
+                "occupancy_feasible": cdn["launches"]["occupancy_feasible"],
+                "replay_scan": full["launches"]["replay_scan"]}
+    check(set(launches) == set(ops.KERNELS)
+          and all(n > 0 for n in launches.values()),
           f"a kernel was not launched on its path: {launches}")
-    phase_kernels(args.seed, dev, errs, launches, full["trace"], cdn)
+    replay_shapes = [
+        ("replay_parity (20k requests, 2k objects)", tr, cm, PARITY_BUDGETS,
+         parity_s, 10, None),
+        ("replay_full (200k requests, 20k objects)", full["trace"],
+         full["cm"], FULL_BUDGETS, full["plain_execute_s"], 2, full_profile)]
+    phase_kernels(args.seed, dev, errs, launches, full["trace"], cdn,
+                  replay_shapes)
     print(smi[0], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,16 +13,21 @@ the victim is the cached object with the minimum score, where
 
 The reference nests `jax.vmap` three deep around one `lax.scan` per cell.
 Here the grid is flattened to a leading cell axis, C = Q*P*K with cell
-c = (q*P + p)*K + k, and one Python loop over the T requests advances all
-C cells at once. Each step does what the reference's `step` does, in the
-same order and with the same float32 expressions written as separate ops
-(no fused multiply-add), so the CPU and the card give the reference's bits
-wherever the reference's own arithmetic is exact.
+c = (q*P + p)*K + k. On the card (`use_kernel=None` -> the device is CUDA)
+`sweep_torch` replays the whole grid in one launch of the `replay_scan`
+kernel, each cell's scan on its own block, with next(t) from the
+`next_use` kernel handed over on the card. Its plain version, taken on the
+CPU or with `use_kernel=False`, is `_replay`: one Python loop over the T
+requests that advances all C cells at once. Each step does what the
+reference's `step` does, in the same order and with the same float32
+expressions written as separate ops (no fused multiply-add), so the CPU
+and the card give the reference's bits wherever the reference's own
+arithmetic is exact, and the kernel repeats them op for op.
 
-Victim selection goes through `kernels.ops.evict_argmin`: the CUDA kernel
-on the card (`use_kernel=None` -> the device is CUDA), the plain PyTorch
-version on the CPU or with `use_kernel=False`. next(t) comes from
-`kernels.ops.next_use` the same way, once per replay.
+The step loop is also the trajectory path (`_simulate(trace_steps=True)`,
+the reference's step-for-step form): there the victim argmin goes through
+`kernels.ops.evict_argmin`, the CUDA kernel on the card with
+`use_kernel=True`.
 
 Uniform-size pages (the exact reference's regime): one eviction per miss.
 Variable sizes stay on the host reference (`policies.py`).
@@ -38,6 +43,7 @@ import torch
 
 from . import carry
 from ..kernels import _build, ops
+from ..kernels.replay_scan import frequency_rank, replay_scan_cuda
 
 __all__ = ["PolicyWeights", "POLICY_WEIGHTS", "simulate_torch", "sweep_torch",
            "stack_policy_weights", "resolve_device"]
@@ -238,15 +244,13 @@ def _simulate(ids, nxt, costs: torch.Tensor, sizes: torch.Tensor,
 def _prepare(ids, costs, num_objects, sizes, dev):
     ids = np.asarray(ids, dtype=np.int32)
     n = int(num_objects if num_objects is not None else ids.max() + 1)
+    if len(ids) and (ids.min() < 0 or ids.max() >= n):
+        raise ValueError(f"ids must lie in [0, {n})")
     ids_t, sizes_t = carry.trace_tensors(ids, sizes, dev, num_objects=n)
     costs_t = carry.cost_matrix(costs, dev)
     if costs_t.shape[-1] != n or sizes_t.shape != (n,):
         raise ValueError(f"costs and sizes must have {n} objects")
     return ids, ids_t, n, sizes_t, costs_t
-
-
-def _next_use_host(ids_t: torch.Tensor, n: int, use_kernel: bool) -> np.ndarray:
-    return _host_ints(ops.next_use(ids_t, n, use_kernel=use_kernel))
 
 
 def simulate_torch(policy: str, ids: np.ndarray, costs: np.ndarray,
@@ -274,11 +278,12 @@ def sweep_torch(policy, ids: np.ndarray, cost_matrix: np.ndarray,
 
     policy:      one policy name -> dollars of shape (P, K); a sequence of
                  names / `PolicyWeights` (or a (Q, 6) stack) -> dollars of
-                 shape (Q, P, K), all cells advanced by one step loop.
+                 shape (Q, P, K).
     cost_matrix: (P, N) per-object costs for P price vectors.
     budgets:     (K,) page budgets.
-    use_kernel:  None -> the CUDA kernels on the card, the plain versions
-                 on the CPU; False -> the plain versions on any device.
+    use_kernel:  None -> the CUDA kernels on the card (the whole grid in one
+                 `replay_scan` launch), the plain step loop on the CPU;
+                 False -> the plain versions on any device.
     profile:     pass a dict to get `compile_s` (building and loading the
                  kernel library; ~0 once loaded), `execute_s` (next(t) plus
                  the replay, synchronised) and `cells`.
@@ -287,6 +292,9 @@ def sweep_torch(policy, ids: np.ndarray, cost_matrix: np.ndarray,
     """
     dev = resolve_device(device)
     use_k = dev.type == "cuda" if use_kernel is None else use_kernel
+    if use_k and dev.type != "cuda":
+        raise ValueError("use_kernel=True needs a CUDA device: the kernels "
+                         "have no CPU mode")
     stack = _policy_stack(policy)
     t0 = time.perf_counter()
     if use_k:
@@ -299,8 +307,14 @@ def sweep_torch(policy, ids: np.ndarray, cost_matrix: np.ndarray,
     weights = carry.weight_stack(stack, dev)
     budgets_t = torch.as_tensor(np.asarray(budgets, dtype=np.int32),
                                 device=dev)
-    dollars, hits, _ = _replay(weights, ids, _next_use_host(ids_t, n, use_k),
-                               costs_t, sizes_t, budgets_t, use_k)
+    nxt_t = ops.next_use(ids_t, n, use_kernel=use_k)
+    if use_k:
+        rank_t = torch.as_tensor(frequency_rank(ids), device=dev)
+        dollars, hits, _ = replay_scan_cuda(weights, ids_t, nxt_t, rank_t,
+                                            costs_t, sizes_t, budgets_t)
+    else:
+        dollars, hits, _ = _replay(weights, ids, _host_ints(nxt_t), costs_t,
+                                   sizes_t, budgets_t, use_kernel=False)
     out, hit_counts = carry.to_numpy(dollars), carry.to_numpy(hits)
     t2 = time.perf_counter()
     if profile is not None:

@@ -4,8 +4,10 @@ Every `.cu` file under `csrc/` is compiled by `nvcc` for `sm_90a` (one
 process per source, all started together) and linked into one shared
 library with a plain C interface, loaded with `ctypes`. The library lands
 in `build/repro_torch_kernels/<hash>/` at the root of the checkout, keyed by
-a hash of the sources and flags, at first use; later loads in the same
-checkout reuse it. A failed build raises: nothing falls back to the plain
+a hash of the sources, the headers they include and the flags, at first
+use; later loads in the same checkout reuse it. ptxas' report of each
+kernel's registers, shared memory and spills lands beside it, in
+`ptxas.log`. A failed build raises: nothing falls back to the plain
 versions.
 """
 from __future__ import annotations
@@ -25,7 +27,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC")
+# diagnostics only: ptxas prints each kernel's resources, the code is the same
+PTXAS_REPORT = ("-Xptxas", "-v")
 _LIB_NAME = "librepro_torch_kernels.so"
+PTXAS_LOG = "ptxas.log"
 
 _lock = threading.Lock()
 _state: dict = {"lib": None}
@@ -62,6 +67,12 @@ _SIGNATURES = {
                                    ctypes.c_longlong, _vp], ctypes.c_int),
     "occupancy_scan_scratch_floats": ([ctypes.c_longlong], ctypes.c_longlong),
     "occupancy_scan_error_chain": ([ctypes.c_longlong], ctypes.c_longlong),
+    # ids, nxt, rank, weights, costs, c_over_s, neg_cost_floor, sizes,
+    # budgets, dollars, hits, work, map_global, slots_global, T, N, Q, P, K,
+    # map_shared, slots_shared, dynamic_bytes, stream
+    "replay_scan_launch": ([_vp] * 14 + [ctypes.c_int] * 7
+                           + [ctypes.c_longlong, _vp], ctypes.c_int),
+    "replay_scan_shared_limit": ([], ctypes.c_longlong),
 }
 
 
@@ -84,23 +95,26 @@ def _sources() -> list[Path]:
 
 def _key(sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _run(cmds: list[list[str]]) -> None:
+def _run(cmds: list[list[str]]) -> list[str]:
+    """Run the commands at once; their output, or raise if one failed."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
-    failed = []
+    outs, failed = [], []
     for cmd, proc in zip(cmds, procs):
         out, _ = proc.communicate()
+        outs.append(out)
         if proc.returncode != 0:
             failed.append(f"$ {' '.join(cmd)}\n{out}")
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return outs
 
 
 def _build(target: Path, sources: list[Path]) -> None:
@@ -108,8 +122,10 @@ def _build(target: Path, sources: list[Path]) -> None:
     target.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
         objs = [Path(tmp) / (src.stem + ".o") for src in sources]
-        _run([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-              for src, obj in zip(sources, objs)])
+        outs = _run([[nvcc, *NVCC_FLAGS, *PTXAS_REPORT, "-c", str(src),
+                      "-o", str(obj)] for src, obj in zip(sources, objs)])
+        (target.parent / PTXAS_LOG).write_text("".join(
+            f"== {src.name}\n{out}" for src, out in zip(sources, outs)))
         staged = Path(tmp) / _LIB_NAME
         _run([[nvcc, *NVCC_FLAGS, "-shared", *map(str, objs),
                "-o", str(staged)]])

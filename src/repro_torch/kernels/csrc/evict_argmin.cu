@@ -29,7 +29,8 @@
 //     whose address at the first word is not 16-byte aligned are loaded one
 //     by one; that is uniform over a row.
 //   * Each lane keeps the lexicographic minimum of (s, touch, index) with
-//     s = mask ? float(score) : 3.4e38f in registers; a butterfly of
+//     s = mask ? float(score) : 3.4e38f in registers (the compare of
+//     argmin_rule.cuh, which replay_scan.cu shares); a butterfly of
 //     shuffles gives its warp's winner and NaN flag in every lane. Lanes
 //     0..7 write it into that rank's shared memory (distributed shared
 //     memory, map_shared_rank), so every CTA holds all 32 warp winners of
@@ -57,6 +58,8 @@
 #include <climits>
 #include <cstdint>
 
+#include "argmin_rule.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -73,39 +76,6 @@ constexpr unsigned kFull = 0xffffffffu;
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-struct Best {
-  float s;
-  int t;
-  int i;
-};
-
-// Sentinel: +inf with the largest touch and index loses to every real entry
-// that is not NaN, including one whose score is +inf.
-__device__ __forceinline__ Best sentinel() {
-  return Best{__int_as_float(0x7f800000), INT_MAX, INT_MAX};
-}
-
-// a < b lexicographically in (s, touch, index); -0.0 and 0.0 tie. Bitwise
-// & and | in place of && and ||, so that the compare compiles to predicate
-// logic and selects rather than branches.
-__device__ __forceinline__ bool less(const Best& a, const Best& b) {
-  return (a.s < b.s) |
-         ((a.s == b.s) & ((a.t < b.t) | ((a.t == b.t) & (a.i < b.i))));
-}
-
-__device__ __forceinline__ void take(Best& b, int& nan_seen, float s, int t,
-                                     int i) {
-  nan_seen |= (s != s);
-  const Best c{s, t, i};
-  if (less(c, b)) b = c;
-}
-
-__device__ __forceinline__ Best shfl_xor(const Best& b, int off) {
-  return Best{__shfl_xor_sync(kFull, b.s, off),
-              __shfl_xor_sync(kFull, b.t, off),
-              __shfl_xor_sync(kFull, b.i, off)};
 }
 
 __device__ __forceinline__ bool aligned16(const void* p) {
@@ -285,11 +255,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
                t_vec, warp, lane);
 
     // The warp's winner in every lane, then sent to every CTA's slots.
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const Best o = shfl_xor(b, off);
-      if (less(o, b)) b = o;
-    }
+    b = warp_min(b);
     nan_seen = __any_sync(kFull, nan_seen);
     if (!dense) cluster_wait();   // the start-up barrier
     if (lane < kCluster)
@@ -307,11 +273,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
       if (less(q.best, r)) r = q.best;
       r_nan |= q.nan_seen;
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const Best o = shfl_xor(r, off);
-      if (less(o, r)) r = o;
-    }
+    r = warp_min(r);
     r_nan = __any_sync(kFull, r_nan);
     if (dense || r_nan || r.s < kBig) break;   // the same in every CTA
   }

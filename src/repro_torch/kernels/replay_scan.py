@@ -1,0 +1,147 @@
+"""Wrapper of the CUDA `replay_scan` kernel (`csrc/replay_scan.cu`).
+
+The port of the reference's replay scan: `src/repro/core/policies_jax.py`,
+`_simulate`'s `lax.scan` (whose step calls the Pallas `evict_argmin`),
+vmapped over the (policy x price vector x budget) grid by `sweep_jax`. One
+launch replays every cell; its plain version is the port's step loop,
+`repro_torch.core.policies_torch._replay(use_kernel=False)`, which
+`policies_torch.sweep_torch` takes on the CPU.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _build
+
+__all__ = ["replay_scan_cuda", "frequency_rank", "plan"]
+
+CHUNK = 512                       # requests a block stages at once
+STAGE_BYTES = CHUNK * 7 * 4       # id, next use, rank, cost, c/s, size, -cost
+SLOT_WORDS = 6                    # object, touch, next use, sb, size, -cost
+
+
+def frequency_rank(ids: np.ndarray) -> np.ndarray:
+    """rank[t] = the count of ids[t] in ids[:t+1], int32: the frequency the
+    step loop reads at step t, the same in every cell."""
+    ids = np.asarray(ids)
+    T = len(ids)
+    order = np.argsort(ids, kind="stable")
+    grouped = ids[order]
+    pos = np.arange(T)
+    first = np.ones(T, bool)
+    first[1:] = grouped[1:] != grouped[:-1]
+    start = np.maximum.accumulate(np.where(first, pos, 0))
+    rank = np.empty(T, np.int32)
+    rank[order] = pos - start + 1
+    return rank
+
+
+def plan(cells: int, num_objects: int, shared_limit: int) -> dict:
+    """The layout of a launch over `cells` cells of `num_objects` objects
+    when a block may take `shared_limit` bytes of dynamic shared memory.
+
+    The object -> slot map goes to shared memory when it takes at most half
+    of what the staging leaves, else to a (cells, N) int32 region of device
+    memory (`map_words`). The slot table holds `slots_shared` slots in the
+    shared memory left over; when that is fewer than N (a cache can grow to
+    all N objects when no score is below 3.4e38), each cell gets a region of
+    N slots in device memory (`slot_words`), into which its table moves if
+    it outgrows the shared one. `shared_bytes`: the dynamic shared memory a
+    block takes.
+    """
+    N = num_objects
+    room = shared_limit - STAGE_BYTES
+    map_bytes = -(-4 * N // 16) * 16
+    map_shared = map_bytes <= room // 2
+    if map_shared:
+        room -= map_bytes
+    slots_shared = min(N, room // (4 * SLOT_WORDS))
+    if slots_shared < 1:
+        raise ValueError(f"replay_scan: {shared_limit} bytes of shared memory "
+                         "hold no slot")
+    return dict(map_shared=map_shared, slots_shared=slots_shared,
+                shared_bytes=(STAGE_BYTES + (map_bytes if map_shared else 0)
+                              + 4 * SLOT_WORDS * slots_shared),
+                map_words=0 if map_shared else cells * N,
+                slot_words=0 if slots_shared == N else cells * SLOT_WORDS * N)
+
+
+def _check(weights, ids, nxt, rank, costs, sizes, budgets) -> None:
+    named = [("weights", weights, torch.float32, 2),
+             ("ids", ids, torch.int32, 1), ("nxt", nxt, torch.int32, 1),
+             ("rank", rank, torch.int32, 1),
+             ("costs", costs, torch.float32, 2),
+             ("sizes", sizes, torch.float32, 1),
+             ("budgets", budgets, torch.int32, 1)]
+    for name, x, dtype, dim in named:
+        if x.dtype != dtype or x.dim() != dim or not x.is_contiguous():
+            raise ValueError(f"replay_scan_cuda: {name} must be a contiguous "
+                             f"{dim}-d {dtype} tensor")
+    T, (P, N) = ids.shape[0], costs.shape
+    if weights.shape[1] != 6:
+        raise ValueError("replay_scan_cuda: weights must have shape (Q, 6)")
+    if nxt.shape != (T,) or rank.shape != (T,) or sizes.shape != (N,):
+        raise ValueError("replay_scan_cuda: nxt and rank must have the ids' "
+                         "shape, sizes (N,) for costs (P, N)")
+    cells = weights.shape[0] * P * budgets.shape[0]
+    if N < 1 or cells < 1 or cells >= 2**31 or T >= 2**31:
+        raise ValueError("replay_scan_cuda: unsupported shape: "
+                         f"{cells} cells, N={N}, T={T}")
+    for name, x, _, _ in named:
+        if not x.is_cuda:
+            raise ValueError(f"replay_scan_cuda: {name} is not a CUDA tensor")
+        if x.device != ids.device:
+            raise ValueError("replay_scan_cuda: tensors on different devices")
+
+
+def replay_scan_cuda(weights: torch.Tensor, ids: torch.Tensor,
+                     nxt: torch.Tensor, rank: torch.Tensor,
+                     costs: torch.Tensor, sizes: torch.Tensor,
+                     budgets: torch.Tensor):
+    """Replay every (policy, price vector, budget) cell over the trace, on
+    the card, in one launch.
+
+    weights (Q, 6) float32; ids, nxt (next(t)) and rank (`frequency_rank`)
+    (T,) int32, ids in [0, N) (the kernel does not check); costs (P, N) and
+    sizes (N,) float32; budgets (K,) int32; all contiguous CUDA tensors on
+    one device. Returns dollars (Q, P, K) float32 and hits (Q, P, K) int32,
+    bit-equal to `_replay(use_kernel=False)` on the same inputs, and work
+    (Q, P, K, 3) int64: the steps that scored the cache, the slots scored
+    over them, the largest cache held. Launches one kernel on the current
+    stream, does not synchronise, and raises if the launch is refused.
+    """
+    _check(weights, ids, nxt, rank, costs, sizes, budgets)
+    lib = _build.library()
+    Q, (P, N), K, T = weights.shape[0], costs.shape, budgets.shape[0], \
+        ids.shape[0]
+    dev = ids.device
+    with torch.cuda.device(dev):
+        layout = plan(Q * P * K, N, lib.replay_scan_shared_limit())
+        # the step loop's per-object columns, by the same ops
+        c_over_s = costs / torch.clamp_min(sizes, 1e-30)
+        neg_cost_floor = -torch.clamp_min(costs, 1e-30)
+        dollars = torch.empty((Q, P, K), dtype=torch.float32, device=dev)
+        hits = torch.empty((Q, P, K), dtype=torch.int32, device=dev)
+        work = torch.empty((Q, P, K, 3), dtype=torch.int64, device=dev)
+        map_g = torch.empty(layout["map_words"], dtype=torch.int32,
+                            device=dev)
+        slots_g = torch.empty(layout["slot_words"], dtype=torch.int32,
+                              device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.replay_scan_launch(
+            ids.data_ptr(), nxt.data_ptr(), rank.data_ptr(),
+            weights.data_ptr(), costs.data_ptr(), c_over_s.data_ptr(),
+            neg_cost_floor.data_ptr(), sizes.data_ptr(), budgets.data_ptr(),
+            dollars.data_ptr(), hits.data_ptr(), work.data_ptr(),
+            map_g.data_ptr() if map_g.numel() else None,
+            slots_g.data_ptr() if slots_g.numel() else None,
+            T, N, Q, P, K, int(layout["map_shared"]), layout["slots_shared"],
+            layout["shared_bytes"], stream)
+    if err != 0:
+        raise RuntimeError(f"replay_scan kernel launch failed: CUDA error {err}")
+    replay_scan_cuda.launches += 1
+    return dollars, hits, work
+
+
+replay_scan_cuda.launches = 0

@@ -1,8 +1,8 @@
 """The port's CUDA kernels, its replay, its serving engine and its training
 step on the card, against their plain PyTorch versions and the CPU. Every
 test is marked `cuda` and skips where torch sees no card. This file
-imports no JAX, so it runs on a machine that has only the port's
-dependencies:
+imports no JAX (the replay's edge grids come from `_replay_cases.py`), so
+it runs on a machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
@@ -20,11 +20,16 @@ from repro_torch.kernels.interval_occupancy import (error_chain,
                                                     occupancy_feasible_cuda)
 from repro_torch.kernels import _build
 from repro_torch.kernels.next_use import next_use_cuda, plan
+from repro_torch.kernels.replay_scan import frequency_rank, replay_scan_cuda
+from repro_torch.kernels import replay_scan as replay_scan_module
+from repro_torch.core.policies_torch import _replay, stack_policy_weights
 from repro_torch.configs import get_config
 from repro_torch.models import get_model
 from repro_torch.models.common import tree_map
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.serve.engine import _grow
+
+import _replay_cases
 
 pytestmark = pytest.mark.cuda
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -262,15 +267,83 @@ def test_sweep_on_card_matches_cpu(cuda):
     policies = list(POLICY_WEIGHTS)
     ops.reset_launch_counts()
     got = sweep_torch(policies, ids, cost_matrix, budgets, num_objects=24)
-    assert ops.launch_counts() == {"evict_argmin": 250, "next_use": 1,
+    assert ops.launch_counts() == {"evict_argmin": 0, "next_use": 1,
                                    "interval_occupancy": 0,
-                                   "occupancy_feasible": 0}
+                                   "occupancy_feasible": 0, "replay_scan": 1}
+    ops.reset_launch_counts()
+    x = _replay_on_card(dict(weights=stack_policy_weights(policies), ids=ids,
+                             costs=cost_matrix, sizes=np.ones(24),
+                             budgets=budgets), cuda)
+    loop, _, _ = _replay(x["weights"], ids, x["nxt"].cpu().numpy(),
+                         x["costs"], x["sizes"], x["budgets"],
+                         use_kernel=True)      # the trajectory path's loop
+    assert ops.launch_counts()["evict_argmin"] == 250
     plain = sweep_torch(policies, ids, cost_matrix, budgets, num_objects=24,
                         use_kernel=False)
     want = sweep_torch(policies, ids, cost_matrix, budgets, num_objects=24,
                        device="cpu")
     np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(loop.cpu().numpy(), want)
     np.testing.assert_array_equal(plain, want)
+
+
+def _replay_on_card(c: dict, dev) -> dict:
+    ids = torch.tensor(np.asarray(c["ids"], np.int32), device=dev)
+    costs = torch.tensor(np.asarray(c["costs"], np.float32), device=dev)
+    return dict(
+        weights=torch.tensor(np.asarray(c["weights"], np.float32), device=dev),
+        ids=ids, nxt=ref.next_use_ref(ids, costs.shape[1]),
+        rank=torch.tensor(frequency_rank(c["ids"]), device=dev), costs=costs,
+        sizes=torch.tensor(np.asarray(c["sizes"], np.float32), device=dev),
+        budgets=torch.tensor(np.asarray(c["budgets"], np.int32), device=dev))
+
+
+def _replay_kernel_against_step_loop(x: dict):
+    d, h, work = replay_scan_cuda(**x)
+    d2, h2, work2 = replay_scan_cuda(**x)
+    pd, ph, _ = _replay(x["weights"], x["ids"].cpu().numpy(),
+                        x["nxt"].cpu().numpy(), x["costs"], x["sizes"],
+                        x["budgets"], use_kernel=False)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(d), _bits(pd)) and torch.equal(h, ph)
+    assert torch.equal(_bits(d), _bits(d2)) and torch.equal(h, h2)
+    assert torch.equal(work, work2)
+    return work
+
+
+@pytest.mark.parametrize("name", _replay_cases.CASES)
+def test_replay_scan_matches_step_loop(cuda, name):
+    """The edge grids (NaN and inf scores, growth past the budget, budgets
+    0, 1, N and past N, ties) bit-equal to the plain step loop, twice."""
+    c = _replay_cases.make(name)
+    work = _replay_kernel_against_step_loop(_replay_on_card(c, cuda))
+    budgets = torch.tensor(c["budgets"], device=cuda)
+    # every cell's table stays within max(budget, 1) or grows only to N
+    assert bool((work[..., 2] <= c["costs"].shape[1]).all())
+    assert bool((work[..., 0][..., budgets >= c["costs"].shape[1]] == 0).all())
+
+
+def test_replay_scan_more_cells_than_sms(cuda):
+    c = _replay_cases.make("lognormal")
+    c = dict(c, weights=np.concatenate([c["weights"]] * 3))   # 240 cells
+    _replay_kernel_against_step_loop(_replay_on_card(c, cuda))
+
+
+def test_replay_scan_map_and_slots_in_device_memory(cuda):
+    """N = 2^17: the map lives in device memory, and the budget-N cell's
+    table outgrows shared memory and moves there."""
+    rng = np.random.default_rng(11)
+    N, T = 2**17, 20_000
+    c = dict(weights=_replay_cases.weights()[[0, 4, 7]],
+             ids=rng.integers(0, N, T), costs=rng.lognormal(-12, 1.5, (1, N)),
+             sizes=np.ones(N), budgets=np.array([N, 12_000]))
+    x = _replay_on_card(c, cuda)
+    layout = replay_scan_module.plan(
+        6, N, _build.library().replay_scan_shared_limit())
+    assert not layout["map_shared"] and layout["slots_shared"] < N
+    work = _replay_kernel_against_step_loop(x)
+    assert int(work[..., 2].max()) > layout["slots_shared"]
+    assert int(work[..., 1, 0].sum()) > 0      # budget 12,000 scores there
 
 
 _TILE = 4096   # the replaced design's tile; the carry tree has radix 256
