@@ -138,8 +138,8 @@ from repro_torch.kernels.interval_occupancy import (  # noqa: E402
     error_chain, interval_occupancy_cuda, occupancy_feasible_cuda)
 from repro_torch.kernels.next_use import (digit_passes,  # noqa: E402
                                           next_use_cuda, plan)
-from repro_torch.kernels.replay_scan import (frequency_rank,  # noqa: E402
-                                             replay_scan_cuda)
+from repro_torch.kernels.replay_scan import (  # noqa: E402
+    WORK_COLUMNS, frequency_rank, replay_scan_cuda)
 from repro_torch.kernels import replay_scan as replay_scan_module  # noqa: E402
 import _replay_cases  # noqa: E402  (tests/: the replay kernel's edge cases)
 
@@ -199,6 +199,9 @@ TOLERANCE["replay_scan"] = "exact: dollars and hits bit-equal"
 SCORE_OPS = 7   # float32 operations a scored slot: next use to float, the
                 # gap, its max with 1, size * gap, the quotient, w_cb's
                 # product, the sum (the compare not counted)
+STATIC_OPS = 2  # a slot on replay_scan's static path: its stored 64-bit key's
+                # compare, two 32-bit integer operations (at the float32
+                # rate: the data sheet gives no int32 rate; a lower bound)
 
 
 
@@ -547,8 +550,13 @@ def replay_scan_checks(seed: int, dev, errs: dict, cases: list) -> dict:
         torch.cuda.synchronize()
         check(same_bits(d, pd) and torch.equal(h, ph),
               f"replay_scan differs from the step loop: {label}")
-        check(same_bits(d, d2) and torch.equal(h, h2) and torch.equal(w, w2),
+        check(same_bits(d, d2) and torch.equal(h, h2)
+              and torch.equal(w[..., :3], w2[..., :3]),
               f"two replay_scan calls differ: {label}")
+        cycles, evict = w[..., 3], w[..., 4]
+        check(bool((cycles > 0).all()) and bool((evict <= cycles).all())
+              and bool(((evict > 0) == (w[..., 0] > 0)).all()),
+              f"replay_scan's cycle counters are off: {label}")
         errs["replay_scan"] = max(errs["replay_scan"],
                                   float((d - pd).abs().max()),
                                   float((h - ph).abs().max()))
@@ -559,6 +567,7 @@ def replay_scan_checks(seed: int, dev, errs: dict, cases: list) -> dict:
                            scored_steps=int(w[..., 0].sum()),
                            slots_scored=int(w[..., 1].sum()),
                            peak_slots=int(w[..., 2].max()),
+                           max_cycles=int(w[..., 3].max()),
                            map_shared=layout["map_shared"],
                            slots_shared=layout["slots_shared"])
         cases.append(f"replay_scan {label}")
@@ -1069,6 +1078,69 @@ def device_time(fn, reps: int = 20, flush: L2Flush | None = None,
     return dict(ms=sum(by_name.values()), kernels=by_name)
 
 
+def replay_cells(work: torch.Tensor, budgets, T: int) -> dict:
+    """Where one replay_scan launch over the (POLICIES x PRICES x budgets)
+    grid spent its cycles, from its work counters: the slowest and the
+    median cell by clock64() cycles, each with its evicting steps, the
+    cycles from reaching them to their victims (share and per step), and
+    the rest (the walk, staging and chunk barriers) per request."""
+    w = work.cpu().numpy().reshape(-1, len(WORK_COLUMNS))
+    col = {name: w[:, j] for j, name in enumerate(WORK_COLUMNS)}
+    shape = (len(POLICIES), len(PRICES), len(budgets))
+    order = np.argsort(col["cycles"], kind="stable")
+
+    def cell(c: int) -> dict:
+        q, p, k = np.unravel_index(c, shape)
+        cycles, evict = int(col["cycles"][c]), int(col["evict_cycles"][c])
+        steps = int(col["scored_steps"][c])
+        return dict(policy=POLICIES[q], price=PRICES[p],
+                    budget=int(budgets[k]), cycles=cycles,
+                    evicting_steps=steps, evict_cycles=evict,
+                    evict_share=evict / cycles,
+                    cycles_per_evicting_step=evict / steps if steps else None,
+                    other_cycles_per_request=(cycles - evict) / T)
+
+    return dict(slowest=cell(int(order[-1])),
+                median=cell(int(order[len(order) // 2])),
+                cycles_all=col["cycles"].tolist())
+
+
+class SmClock:
+    """The SM clock sampled beside a timing window: `nvidia-smi
+    --query-gpu=clocks.sm` every 100 ms while the block runs, stopped when
+    it ends. `mhz` holds the samples."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        self.mhz = [int(x) for x in out.split() if x.strip().isdigit()]
+        return False
+
+
+def static_path_slots(x: dict, work: torch.Tensor) -> int:
+    """The slots this run's evicting steps compare by their stored key alone
+    (csrc/replay_scan.cu's static path): every slot of the cells whose row
+    has w_cb = 0 in a price row where each request's cost-Belady term is
+    finite at its own step, so that no cached slot is ever flagged. Cells of
+    a price row with a flagged request count as scored in full."""
+    ids, nu = x["ids"].long(), x["nxt"]
+    T = ids.shape[0]
+    t = torch.arange(T, device=ids.device).float()
+    gap = torch.clamp_min(nu.float() - t, 1.0)
+    negcf = -torch.clamp_min(x["costs"][:, ids], 1e-30)
+    cb = torch.where(nu >= T, -3.4e38, x["sizes"][ids] * gap / negcf)
+    static = ((x["weights"][:, 5] == 0)[:, None, None]
+              & torch.isfinite(cb).all(dim=1)[None, :, None])
+    return int((work[..., 1] * static).sum())
+
+
 def replay_scan_rows(dev, errs: dict, launches: dict, shapes: list) -> list:
     """replay_scan's rows at the parity and the full shape: the kernel
     alone on inputs already on the card (window `ms` over back-to-back
@@ -1080,7 +1152,11 @@ def replay_scan_rows(dev, errs: dict, launches: dict, shapes: list) -> list:
     profiled: tens of thousands of steps of ~46 ops). The bound counts
     this data's work: each input read once and each output written once,
     and SCORE_OPS float32 operations a scored slot, from the kernel's own
-    counters, against 67 TFLOP/s."""
+    counters, against 67 TFLOP/s; `bound_path_ms` counts the static path's
+    slots (`static_path_slots`) at STATIC_OPS each and the rest at
+    SCORE_OPS. `cells`: the slowest and the median
+    cell's cycles (`replay_cells`), with the SM clock sampled during the
+    window."""
     rows = []
     for label, tr, cm, budgets, plain_s, reps, on_card in shapes:
         x = replay_inputs(stack_policy_weights(POLICIES), tr.ids, cm,
@@ -1099,15 +1175,20 @@ def replay_scan_rows(dev, errs: dict, launches: dict, shapes: list) -> list:
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / F32_PEAK_FLOPS * 1e3
         bound_ms = max(bytes_ms, ops_ms)
+        static = static_path_slots(x, work)
+        path_ops = STATIC_OPS * static + SCORE_OPS * (slots - static)
+        bound_path_ms = max(bytes_ms, path_ops / F32_PEAK_FLOPS * 1e3)
         device_note = "replay_profile's trace of the sweep (the kernel alone)"
         if on_card is None:
             on_card = device_time(kernel, reps=reps)
             device_note = "device_time: the kernel and the wrapper's ops"
+        with SmClock() as clock:
+            window_ms = time_ms(kernel, reps=reps, rounds=5)
         rows.append(dict(
             name="replay_scan", **KERNEL_INFO["replay_scan"],
             launches=launches["replay_scan"], max_abs_err=errs["replay_scan"],
             tolerance=TOLERANCE["replay_scan"],
-            ms=time_ms(kernel, reps=reps, rounds=5), plain_ms=plain_s * 1e3,
+            ms=window_ms, plain_ms=plain_s * 1e3,
             plain_note="the plain step loop's execute_s (next(t), the loop, "
                        "the copy back) in " + label,
             device_ms=on_card["ms"], device_kernels=on_card["kernels"],
@@ -1120,13 +1201,22 @@ def replay_scan_rows(dev, errs: dict, launches: dict, shapes: list) -> list:
             bound_note=f"max({nbytes} bytes over 3.35 TB/s, {flops} float32 "
                        f"operations ({slots} slots scored x {SCORE_OPS}) "
                        "over 67 TFLOP/s)",
+            bound_path_ms=bound_path_ms,
+            bound_path_share=(bound_path_ms / on_card["ms"]
+                              if on_card["kernels"] else "not measured"),
+            bound_path_note=f"max(the bytes, {path_ops} operations: {static} "
+                            f"static-path slots x {STATIC_OPS} and "
+                            f"{slots - static} x {SCORE_OPS})",
             library_ms=None, library_call=None,
             library_note="none: no single PyTorch call replays a cache",
             shape=dict(T=T, N=N, cells=C, budgets=[int(b) for b in budgets],
                        data=f"twemcache_like, {label}",
                        scored_steps=int(work[..., 0].sum()),
                        slots_scored=slots,
-                       peak_slots=int(work[..., 2].max()))))
+                       peak_slots=int(work[..., 2].max())),
+            cells={k: v for k, v in replay_cells(work, budgets, T).items()
+                   if k != "cycles_all"},
+            sm_clock_mhz=clock.mhz))
     return rows
 
 

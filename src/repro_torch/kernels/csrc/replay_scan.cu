@@ -7,49 +7,112 @@
 // one grid program of sweep_jax. The plain version is the port's step loop,
 // src/repro_torch/core/policies_torch.py, _replay(use_kernel=False).
 //
-// What bounds it on an H100: latency. Each cell is a chain of T dependent
-// steps. The bytes it must move (the trace once, three cost columns and a
+// What bounds it on an H100: the slowest cell's chain of dependent steps.
+// One block replays one cell, and the launch lasts as long as its slowest
+// cell. The bytes it must move (the trace once, three cost columns and a
 // size a request, the outputs) and its operations (one score a cached
-// object on each step that evicts) are both far below the card's rates.
+// object on each step that evicts) are both far below the card's rates;
+// what counts is the latency of each step, above all of the steps that
+// evict (a miss with a full cache), on a chain where one warp alone issues
+// (PERF.md: about four cycles an instruction).
 //
-// Design: one CTA of 512 threads a cell, cell c = (q*P + p)*K + k; the CTA
-// walks the T requests itself, as the scan does.
+// Layout: one CTA of 512 threads a cell, cell c = (q*P + p)*K + k.
 //   * A cell's cache is a table of slots, not an (N,) row: a slot holds the
-//     object, its last touch, its next use, the part of its score fixed at
-//     the touch (sb = static + w_bel * bel), its size and -max(cost, 1e-30).
-//     An (N,) object -> slot map answers is_hit. A cached object's touch and
-//     next use change only when it is requested, and a request always
-//     touches it, so the table is exact. A victim's slot takes the object
-//     that displaces it; a miss with room appends.
-//   * Only a miss with used >= budget needs the victim (the plain version's
-//     do_evict). Thread 0 walks the requests alone -- hits and misses with
-//     room touch one slot -- until such a step, a chunk's end or a full
-//     table; there every thread meets at a barrier. On an evicting step all
-//     threads score the used slots and reduce (score, touch, object) with
-//     argmin_rule.cuh's compare, the rule of evict_argmin.cu.
-//   * Every score repeats the plain version's float32 operations in its
-//     order, written as __fadd_rn / __fmul_rn / __fdiv_rn so that no
-//     multiply-add is contracted whatever the flags, and evaluated for every
-//     weight, zero or not (0 * inf is NaN there too). Dollars add up in step
-//     order in float32.
-//   * The NaN rule: a NaN among the scores makes the plain version's min NaN;
-//     its victim is then object 0 with object 0's score (3.4e38 when object 0
-//     is not cached), evicted when that score is below 3.4e38. A miss always
-//     inserts, so when no score is below 3.4e38 the table grows past its
-//     budget, up to all N objects.
+//     object, its next use, the part of its score fixed at the touch (sb =
+//     static + w_bel * bel), its size, -max(cost, 1e-30), and one 8-byte
+//     key, (order image of sb) << 32 | touch. An (N,) object -> slot map
+//     answers is_hit. A cached object's touch and next use change only when
+//     it is requested, and a request always touches it, so the table is
+//     exact. A victim's slot takes the object that displaces it; a miss with
+//     room appends.
 //   * Requests are staged, not chased: all threads gather a chunk of 512
-//     requests (id, next use, frequency rank, cost, cost / size, size,
-//     -max(cost, 1e-30)) into shared memory, so thread 0 reads no device
-//     memory on its way. The frequency rank (the count of ids[t] in
-//     ids[:t+1]) is the same in every cell and comes from the host.
+//     requests into shared memory (id, next use, cost, size, -max(cost,
+//     1e-30), cost / size, and the parts of sb known before the touch), so
+//     the walk reads no device memory. The frequency rank (the count of
+//     ids[t] in ids[:t+1]) is the same in every cell and comes from the host.
 //   * The map lives in shared memory while it takes at most half of what a
 //     block may have, else in a (C, N) region of device memory. The slot
 //     table starts in the shared memory left over; a cell whose table
 //     outgrows it copies it once into its own region of N slots in device
 //     memory, of the same layout, and goes on there. The host picks the
-//     layout (kernels/replay_scan.py, plan()) and this file checks it.
-//   * Per cell the kernel also writes its work: the steps that scored, the
-//     slots scored over them, and the largest table it held.
+//     layout (kernels/replay_scan.py, plan()) and this file checks it. The
+//     kernel is built twice, for a map in shared and in device memory, and
+//     the walk and the scan twice, for a table in each, so that every
+//     access is a shared or a global one and no pointer is chosen at run
+//     time (a chosen one put the table's pointers in local memory).
+//
+// The walk. Warp 0 replays the chunk in lockstep, every lane on the same
+// state, so its loads are broadcasts and an evicting step needs no hand-off
+// at all: no __syncthreads, no shuffle, no control word. Runs of hits go a
+// warp at a time: the 32 lanes look up the next 32 requests, every request
+// before the first miss (__ballot_sync) is a hit as of its own step, and
+// each slot in the run takes the touch of its last request there (an
+// atomicMax on the key's touch word picks it; touches only grow).
+//
+// An evicting step, as short a chain as the table allows:
+//   * The warps follow the table. Each chunk, every warp counts the same
+//     scoring warps from the table its evicting steps will see, max(used,
+//     budget): one warp while that is at most `one` slots, else one for
+//     each `per` slots, 2 to 16 (kStaticOne/Per and kFullOne/Per below,
+//     mirrored in kernels/replay_scan.py; the warps past the count wait at
+//     the next chunk's barrier). Rows whose
+//     score is fixed at the touch take one = 1,024, per = 320: their scan
+//     is one 8-byte load and a 64-bit compare a slot, and a second warp
+//     costs a barrier round trip and a second reduction, ~450 cycles, which
+//     a one-warp scan of up to ~32 slots a lane does not exceed. The other
+//     rows take one = per = 128: a slot costs a division and five more
+//     words. Set from the per-cell cycles on the card (PERF.md).
+//     With more than one warp, warp 0 writes the step into shared memory
+//     and arrives at named barrier 1 (bar.arrive 1, 32 * warps), where the
+//     helpers wait; they score their share, write their winner and arrive
+//     at barrier 2, where warp 0 waits after scoring its own: one round
+//     trip over the scoring warps alone, never a block barrier. A table
+//     that grows inside a chunk is still covered (each lane loops over its
+//     slots); the next chunk recounts.
+//   * The argmin is redux.sync, not a shuffle tree (argmin_rule.cuh,
+//     warp_argmin_distinct): a cached object's touch is the step it was
+//     last requested, so touches are distinct and (score, touch) is a total
+//     order, and the index compare of evict_argmin's rule is never reached.
+//     Each lane keeps its least key over its slots (four chains of loads
+//     and compares); the warp takes __reduce_min_sync of the image, and of
+//     the touch only when several lanes hold that image, then shuffles the
+//     key and slot from the lane that holds both, so the victim needs no map
+//     read. Across warps the same reduction runs over the warps' winners. A
+//     NaN score takes image 0, below every real one, so the first reduction
+//     also tells whether a NaN is among the scores.
+//   * No division in the cells whose score is fixed at the touch. Where
+//     w_cb is +-0, a slot's score at step t is sb + w_cb * cb(t), which
+//     equals sb in value (up to the sign of a zero, which the compare
+//     ignores) whenever cb(t) is finite; when it is not, w_cb * cb is NaN.
+//     Between a touch and the slot's next use, gap = max(next - t, 1) only
+//     falls and float rounding is monotone, so |cb(t)| only shrinks: a term
+//     finite at the touch stays finite. The staging evaluates each
+//     request's term at its own step and keeps "not finite" in the top bit
+//     of its next-use word (next use < 2^31); the slot keeps that word, and
+//     warp 0 counts the cached slots whose bit is set. While the count is 0
+//     an evicting step compares the stored keys alone; while it is above 0
+//     the step scores every slot in full. Rows with w_cb != 0 always score
+//     in full.
+//   * The victim: the NaN rule (a NaN among the scores makes the plain
+//     version's min NaN; its victim is then object 0 with object 0's score,
+//     3.4e38 when object 0 is not cached) reads map[0]. Otherwise the
+//     winner's slot is the victim when its score is below 3.4e38; in
+//     GreedyDual rows its score is recomputed in full (slot_score) for that
+//     one slot, so infl takes the plain version's bits, signed zeros
+//     included; elsewhere the winner's image decides. A miss always
+//     inserts, so when no score is below 3.4e38 the table grows past its
+//     budget, up to all N objects.
+//
+// Every score repeats the plain version's float32 operations in its order,
+// written as __fadd_rn / __fmul_rn / __fdiv_rn so that no multiply-add is
+// contracted whatever the flags, and evaluated for every weight, zero or
+// not (0 * inf is NaN there too); the parts of sb known before the touch
+// are the same operations, done at staging. Dollars add up in step order
+// in float32. Per cell the kernel also writes its work: the steps that
+// scored, the slots the algorithm considers on them (used on each evicting
+// step, whichever path scored it), the largest table it held, the cell's
+// clock64() cycles from start to end, and the cycles from reaching each
+// evicting step to its victim's decision.
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
@@ -61,64 +124,142 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 512;          // requests staged at once
-constexpr int kStageWords = 7;       // words a staged request
-constexpr int kSlotWords = 6;        // words a slot
+constexpr int kStageWords = 9;       // words a staged request
+constexpr int kSlotWords = 7;        // words a slot (the key takes two)
 constexpr int kStageBytes = kChunk * kStageWords * 4;
+constexpr int kWorkWords = 5;        // work counters a cell
 constexpr float kBig = 3.4e38f;
+constexpr unsigned kBad = 0x80000000u;   // next-use word: w_cb * cb not finite
+constexpr unsigned kNuMask = 0x7fffffffu;
 
-// What thread 0 stopped at.
+// The scoring warps' rule (one, per), for rows whose score is fixed at the
+// touch (w_cb == 0) and for the rest; see "The warps follow the table".
+constexpr int kStaticOne = 1024, kStaticPer = 320;
+constexpr int kFullOne = 128, kFullPer = 128;
+
+// Named barriers of the scoring warps (0 is __syncthreads).
+constexpr int kGoBarrier = 1;     // lane 0 published a step
+constexpr int kDoneBarrier = 2;   // the helpers' winners are written
+
+// What a chunk's replay stops at, and what warp 0 hands the helpers.
 constexpr int kChunkDone = 0;   // the chunk is replayed
-constexpr int kScore = 1;       // an evicting step needs its victim
+constexpr int kScore = 1;       // an evicting step: score your share
 constexpr int kSpill = 2;       // the table must move to device memory
-
-// Where thread 0 is inside a step.
-constexpr int kFresh = 0;       // nothing of the step done
-constexpr int kDecided = 1;     // dollars and hits done; victim known
-constexpr int kAppend = 2;      // dollars and hits done; append the object
+constexpr int kStatic = 4;      // flag on kScore: compare sb alone
 
 struct Slots {
+  unsigned long long* key;   // order_image(sb) << 32 | touch
   int* obj;
-  int* touch;
-  int* nu;
+  unsigned* nu;              // next use, with kBad
   float* sb;
   float* size;
   float* negcf;
 };
 
-// Six arrays of `stride` words from base on.
-__device__ __forceinline__ Slots slot_table(void* base, long long stride) {
-  int* w = static_cast<int*>(base);
-  return Slots{w, w + stride, w + 2 * stride,
-               reinterpret_cast<float*>(w + 3 * stride),
+// The arrays of a table of `stride` slots from base on (8-byte aligned, the
+// key first, then five arrays of `stride` words). The base is either
+// derived from the block's shared memory or from the cell's device region,
+// never a pointer chosen between the two at run time, so that every access
+// compiles to a shared or a global load and the table's pointers stay in
+// registers.
+__device__ __forceinline__ Slots slot_table(int* w, long long stride) {
+  return Slots{reinterpret_cast<unsigned long long*>(w), w + 2 * stride,
+               reinterpret_cast<unsigned*>(w + 3 * stride),
                reinterpret_cast<float*>(w + 4 * stride),
-               reinterpret_cast<float*>(w + 5 * stride)};
+               reinterpret_cast<float*>(w + 5 * stride),
+               reinterpret_cast<float*>(w + 6 * stride)};
 }
 
-// The plain version's raw score of a cached object at step tf:
-// (static + w_bel * bel) + w_cb * cb, cb = (size * gap) / -max(cost, 1e-30),
+
+// cost-Belady's term at step tf: cb = (size * gap) / -max(cost, 1e-30),
 // gap = max(next - t, 1), cb = -3.4e38 for an object never used again.
-__device__ __forceinline__ float score(float sb, int nu, float size,
-                                       float negcf, float tf, int T,
-                                       float w_cb) {
+__device__ __forceinline__ float cost_belady(int nu, float size, float negcf,
+                                             float tf, int T) {
   const float gap = fmaxf(__fsub_rn(__int2float_rn(nu), tf), 1.0f);
-  const float cb =
-      nu >= T ? -kBig : __fdiv_rn(__fmul_rn(size, gap), negcf);
-  return __fadd_rn(sb, __fmul_rn(w_cb, cb));
+  return nu >= T ? -kBig : __fdiv_rn(__fmul_rn(size, gap), negcf);
 }
 
-// The part of an object's score fixed at its touch at step tf:
-// static = ((w0*t + w1*f) + w2*(L + c/s)) + w3*(L + f*(c/s)), plus
-// w_bel * bel with bel = -next (-3.4e38 for an object never used again).
-__device__ __forceinline__ float fixed_score(const float* w, float tf,
-                                             float fi, float infl, float cos,
-                                             int nu, int T) {
-  const float a = __fmul_rn(w[0], tf);
-  const float b = __fmul_rn(w[1], fi);
+// The plain version's raw score of the object in slot s at step tf:
+// (static + w_bel * bel) + w_cb * cb.
+__device__ __forceinline__ float slot_score(const Slots& sl, int s, float tf,
+                                            int T, float w_cb) {
+  const float sb = sl.sb[s];
+  const unsigned nuw = sl.nu[s];
+  const float size = sl.size[s], negcf = sl.negcf[s];
+  return __fadd_rn(
+      sb, __fmul_rn(w_cb, cost_belady(int(nuw & kNuMask), size, negcf, tf, T)));
+}
+
+// The part of an object's score fixed at its touch at step tf is
+// sb = static + w_bel * bel, static = ((w0*t + w1*f) + w2*(L + c/s))
+// + w3*(L + f*(c/s)), bel = -next (-3.4e38 for an object never used
+// again), L = infl. Every term but the two that add L is known when the
+// request is staged: the staging keeps ab = w0*t + w1*f, fc = f * (c/s)
+// and wb = w_bel * bel, and the touch adds the rest in the same order.
+// Rows with w_gd + w_gdsf <= 0 never change infl from 0, so there the
+// staging computes sb whole (in ab) and the touch only stores it.
+__device__ __forceinline__ float touch_score(const float* w, float ab,
+                                             float cos, float fc, float wb,
+                                             float infl) {
   const float c = __fmul_rn(w[2], __fadd_rn(infl, cos));
-  const float d = __fmul_rn(w[3], __fadd_rn(infl, __fmul_rn(fi, cos)));
-  const float stat = __fadd_rn(__fadd_rn(__fadd_rn(a, b), c), d);
-  const float bel = nu >= T ? -kBig : -__int2float_rn(nu);
-  return __fadd_rn(stat, __fmul_rn(w[4], bel));
+  const float d = __fmul_rn(w[3], __fadd_rn(infl, fc));
+  return __fadd_rn(__fadd_rn(__fadd_rn(ab, c), d), wb);
+}
+
+// One lane's least key over slots first, first + stride, ... below u, on
+// four chains (a chain's loads and compares overlap the others'). Where sb
+// alone decides, the key is the slot's stored one: one 8-byte load and a
+// 64-bit compare a slot. Else the score is computed in full and keyed.
+template <bool kSbAlone>
+__device__ __forceinline__ Key scan_share(const Slots sl, int u, int first,
+                                          int stride, float tf, int T,
+                                          float w_cb) {
+  Key c[4] = {empty_key(), empty_key(), empty_key(), empty_key()};
+  for (int s0 = first; s0 < u; s0 += 4 * stride) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int s = s0 + k * stride;
+      const int sc = min(s, u - 1);   // in bounds; masked below
+      Key x;
+      if constexpr (kSbAlone)
+        x = Key{sl.key[sc], sc};
+      else
+        x = Key{pack_key(order_image(slot_score(sl, sc, tf, T, w_cb)),
+                         unsigned(sl.key[sc])),
+                sc};
+      if (s < u) c[k] = min_key(c[k], x);
+    }
+  }
+  return min_key(min_key(c[0], c[1]), min_key(c[2], c[3]));
+}
+
+// A scoring warp's share of an evicting step, reduced over the warp.
+__device__ __forceinline__ Key score_share(const Slots sl, int u, int first,
+                                           int stride, bool sb_alone,
+                                           float tf, int T, float w_cb) {
+  return warp_argmin_distinct(
+      sb_alone ? scan_share<true>(sl, u, first, stride, tf, T, w_cb)
+               : scan_share<false>(sl, u, first, stride, tf, T, w_cb));
+}
+
+// Scoring warps for a table of u slots: one up to `one`, else one for
+// each `per` slots, at least two and at most kWarps.
+__device__ __forceinline__ int warps_for(long long u, int one, int per) {
+  return u <= one ? 1
+                  : (int)min((long long)kWarps, max(2ll, (u + per - 1) / per));
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("barrier.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrive without waiting. Barrier completion orders the arriving threads'
+// earlier shared-memory writes before the waiting threads' later reads. No
+// warp arrives at a barrier twice before it completes: warp 0 arrives at
+// barrier 1 for a step only after barrier 2 of the last one completed,
+// which the helpers reach only after barrier 1 completed.
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("barrier.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 struct Params {
@@ -133,24 +274,207 @@ struct Params {
   const int* budgets;        // (K,)
   float* dollars;            // (C,)
   int* hits;                 // (C,)
-  long long* work;           // (C, 3)
+  long long* work;           // (C, kWorkWords)
   int* map_global;           // (C, N), or null when the map is shared
-  int* slots_global;         // (C, 6N), or null when N slots fit shared
+  int* slots_global;         // (C, 7 * even(N)), or null when N fit shared
   int T, N, P, K;
   int map_shared;            // 1: the map in shared memory
   int slots_shared;          // slots the shared table holds
 };
 
-struct Winner {
-  Best best;
-  int nan_seen;
+// The cell's replay state. Warp 0 runs the walk in lockstep, every lane on
+// the same values (its loads are broadcasts, its stores one word each), so
+// every lane holds this state and an evicting step needs no hand-off.
+struct Cell {
+  int used = 0, hits = 0, peak = 0;
+  bool append = false;   // the request at j still has to be appended
+  int bad = 0;           // cached slots whose w_cb * cb was not finite at touch
+  float infl = 0.0f, dollars = 0.0f;
+  long long scored_steps = 0, scored_slots = 0, evict_cycles = 0;
 };
 
+// The staged chunk, read-only while it is walked.
+struct Stage {
+  const int* id;
+  const unsigned* nu;   // next use, with kBad
+  const float* cost;
+  const float* size;
+  const float* negcf;
+  const float* cos;     // cost / size
+  const float* fc;      // frequency * cost / size
+  const float* ab;      // w0*t + w1*f, or sb whole where infl stays 0
+  const float* wb;      // w_bel * bel
+  const unsigned* img;  // where infl stays 0: order_image(sb), in fc's place
+};
+
+// The score part fixed at the touch by request j, and its order image.
+__device__ __forceinline__ float touch_sb(const Stage& st, int j,
+                                         const float* w, bool gd_active,
+                                         float infl, unsigned& img) {
+  if (!gd_active) {
+    img = st.img[j];
+    return st.ab[j];
+  }
+  const float sb = touch_score(w, st.ab[j], st.cos[j], st.fc[j], st.wb[j],
+                               infl);
+  img = order_image(sb);
+  return sb;
+}
+
+// The control words warp 0 hands the helper warps before barrier 1.
+struct Control {
+  int event, used, t, global;
+};
+
+// Request j of the chunk (t = t0 + j) puts its object in slot s, which
+// held a slot flagged `old_bad` (0 for a new one), and touches it.
+__device__ __forceinline__ void place(Cell& c, const Stage& st, int* map,
+                                      const Slots& t, int s, int j, int t0,
+                                      unsigned old_bad, const float* w,
+                                      bool gd_active) {
+  const int i = st.id[j];
+  map[i] = s;
+  t.obj[s] = i;
+  t.size[s] = st.size[j];
+  t.negcf[s] = st.negcf[j];
+  c.bad += int(st.nu[j] >> 31) - int(old_bad);
+  unsigned img;
+  t.sb[s] = touch_sb(st, j, w, gd_active, c.infl, img);
+  t.nu[s] = st.nu[j];
+  t.key[s] = pack_key(img, t0 + j);
+}
+
+// The per-cell constants of the walk.
+struct Row {
+  const float* w;
+  bool gd_active, static_row;
+  int budget, T, nw;
+  unsigned big_img;
+};
+
+// Warp 0 replays the chunk from request j on, table t holding `capacity`
+// slots, until the chunk's end (kChunkDone) or a full table (kSpill, with
+// j on the request still to append). Runs of hits go a warp at a time: the
+// 32 lanes look up the next 32 requests, and since a hit changes no map
+// entry, every request before the first miss is a hit as of its own step.
+// Each slot in the run takes the touch of its last request there
+// (__match_any_sync); hits grow by the run's length, and dollars not at all
+// (a hit adds 0.0f, and the dollar sum, begun at +0.0, is never -0.0, so
+// that add never changes its bits). The first miss goes on alone, and if
+// the table is full it is an evicting step, scored and decided here.
+// `track_bad`: some slot may hold kBad.
+__device__ __forceinline__ int replay_chunk(Cell& c, int& j, int n, int t0,
+                                            const Stage& st, int* map,
+                                            const Slots t, int capacity,
+                                            const Row& row, bool track_bad,
+                                            Control* ctl, Key* winners) {
+  const int lane = threadIdx.x & 31;
+  const float* w = row.w;
+  for (;;) {
+    if (c.append) {   // a miss appends (past the budget, too)
+      if (c.used == capacity) return kSpill;
+      place(c, st, map, t, c.used++, j, t0, 0u, w, row.gd_active);
+      c.peak = max(c.peak, c.used);
+      c.append = false;
+      ++j;
+    }
+    if (j >= n) return kChunkDone;
+    const int r = j + lane;
+    const bool valid = r < n;
+    const int s_r = map[st.id[valid ? r : j]];
+    const unsigned miss = __ballot_sync(0xffffffffu, valid & (s_r < 0));
+    const int h = miss ? __ffs(miss) - 1 : min(32, n - j);   // leading hits
+    if (h > 0) {
+      const bool in_run = lane < h;
+      bool last = in_run;   // the run's last request to its slot
+      if (h > 1) {
+        // each slot's touch word (the key's low half) takes the run's
+        // latest request to it; touches only grow, so the slot's older
+        // touch always loses
+        unsigned* touch_word =
+            reinterpret_cast<unsigned*>(t.key + (in_run ? s_r : 0));
+        if (in_run) atomicMax(touch_word, unsigned(t0 + r));
+        __syncwarp();
+        last = in_run && *touch_word == unsigned(t0 + r);
+      }
+      if (track_bad)
+        c.bad += __reduce_add_sync(
+            0xffffffffu,
+            last ? int(st.nu[r] >> 31) - int(t.nu[s_r] >> 31) : 0);
+      if (last) {
+        unsigned img;
+        t.sb[s_r] = touch_sb(st, r, w, row.gd_active, c.infl, img);
+        t.nu[s_r] = st.nu[r];
+        t.key[s_r] = pack_key(img, t0 + r);
+      }
+      c.hits += h;
+      j += h;
+      if (!miss) continue;   // no miss among the next 32 (or to the end)
+    }
+    // request j misses
+    c.dollars = __fadd_rn(c.dollars, st.cost[j]);
+    if (c.used < row.budget) {
+      c.append = true;
+      continue;
+    }
+    // an evicting step: the minimum of (score, touch) over the cached
+    // objects (the requested one is not among them: a miss)
+    const long long reached = clock64();
+    ++c.scored_steps;
+    c.scored_slots += c.used;
+    const bool sb_alone = row.static_row && c.bad == 0;
+    const int team = 32 * row.nw;
+    if (row.nw > 1) {
+      if (lane == 0) {
+        ctl->event = sb_alone ? kScore | kStatic : kScore;
+        ctl->used = c.used;
+        ctl->t = t0 + j;
+      }
+      bar_arrive(kGoBarrier, team);   // the helpers wait; warp 0 need not
+    }
+    const float tf = __int2float_rn(t0 + j);
+    Key win = score_share(t, c.used, lane, team, sb_alone, tf, row.T, w[5]);
+    if (row.nw > 1) {
+      bar_sync(kDoneBarrier, team);
+      win = warp_argmin_distinct(lane == 0 ? win
+                                 : lane < row.nw ? winners[lane]
+                                                 : empty_key());
+    }
+    int v;   // the victim's slot, -1 for none
+    float vscore = 0.0f;
+    bool evict;
+    if (key_image(win) == kNanImage) {   // a NaN: the plain version's victim 0
+      v = map[0];
+      vscore = v >= 0 ? slot_score(t, v, tf, row.T, w[5]) : kBig;
+      evict = vscore < kBig;
+    } else {
+      v = win.slot;
+      if (v >= 0 && row.gd_active) {
+        vscore = slot_score(t, v, tf, row.T, w[5]);
+        evict = vscore < kBig;
+      } else {
+        evict = key_image(win) < row.big_img;   // kEmpty when there is none
+      }
+    }
+    c.evict_cycles += clock64() - reached;
+    if (!evict) {   // nothing is evicted
+      c.append = true;
+      continue;
+    }
+    if (row.gd_active) c.infl = vscore;
+    map[t.obj[v]] = -1;
+    place(c, st, map, t, v, j, t0, t.nu[v] >> 31, w, row.gd_active);
+    ++j;
+  }
+}
+
+template <bool kMapShared>
 __global__ void __launch_bounds__(kThreads, 1)
     replay_scan_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ Winner winners[kWarps];
-  __shared__ int ctl_event, ctl_used, ctl_t;
+  __shared__ Key winners[kWarps];
+  __shared__ Control ctl;
+  const long long start = clock64();
 
   const int cell = blockIdx.x;
   const int k = cell % p.K;
@@ -162,174 +486,166 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int T = p.T, N = p.N;
 
   int* st_id = reinterpret_cast<int*>(smem);
-  int* st_nu = st_id + kChunk;
-  int* st_rank = st_nu + kChunk;
-  float* st_cost = reinterpret_cast<float*>(st_rank + kChunk);
-  float* st_cos = st_cost + kChunk;
-  float* st_size = st_cos + kChunk;
+  unsigned* st_nu = reinterpret_cast<unsigned*>(st_id + kChunk);
+  float* st_cost = reinterpret_cast<float*>(st_nu + kChunk);
+  float* st_size = st_cost + kChunk;
   float* st_negcf = st_size + kChunk;
+  float* st_cos = st_negcf + kChunk;
+  float* st_fc = st_cos + kChunk;
+  float* st_ab = st_fc + kChunk;
+  float* st_wb = st_ab + kChunk;
+  unsigned* st_img = reinterpret_cast<unsigned*>(st_fc);
+  const Stage st{st_id, st_nu, st_cost, st_size, st_negcf,
+                 st_cos, st_fc, st_ab, st_wb, st_img};
   unsigned char* rest = smem + kStageBytes;
-  int* map = p.map_shared ? reinterpret_cast<int*>(rest)
-                          : p.map_global + (long long)cell * N;
-  unsigned char* shared_slots =
-      rest + (p.map_shared ? (((long long)N * 4 + 15) & ~15ll) : 0);
-  Slots sl = slot_table(shared_slots, p.slots_shared);
-  int capacity = p.slots_shared;   // slots the table holds where it is
+  int* map;
+  int* shared_base;
+  if constexpr (kMapShared) {
+    map = reinterpret_cast<int*>(rest);
+    shared_base = reinterpret_cast<int*>(rest + (((long long)N * 4 + 15) &
+                                                 ~15ll));
+  } else {
+    map = p.map_global + (long long)cell * N;
+    shared_base = reinterpret_cast<int*>(rest);
+  }
+  const Slots shared_table = slot_table(shared_base, p.slots_shared);
+  // the cell's region of N slots (an even stride, for the keys' alignment)
+  // in device memory, taken only once the table has moved there (so only
+  // when the layout gave one)
+  int* const slots_global = p.slots_global;
+  const int gstride = (N + 1) & ~1;
+  const long long region = (long long)cell * kSlotWords * gstride;
+  auto global_table = [=] {
+    return slot_table(slots_global + region, gstride);
+  };
 
   float w[6];
 #pragma unroll
   for (int j = 0; j < 6; ++j) w[j] = p.weights[q * 6 + j];
-  const bool gd_active = __fadd_rn(w[2], w[3]) > 0.0f;
-  const int budget = p.budgets[k];
-  const long long row = (long long)pi * N;
-  const float* cost_row = p.costs + row;
-  const float* cos_row = p.c_over_s + row;
-  const float* negcf_row = p.neg_cost_floor + row;
+  Row row;
+  row.w = w;
+  row.gd_active = __fadd_rn(w[2], w[3]) > 0.0f;
+  row.static_row = w[5] == 0.0f;
+  row.budget = p.budgets[k];
+  row.T = T;
+  row.big_img = order_image(kBig);
+  const int one_warp = row.static_row ? kStaticOne : kFullOne;
+  const int per_warp = row.static_row ? kStaticPer : kFullPer;
+  const long long prow = (long long)pi * N;
+  const float* cost_row = p.costs + prow;
+  const float* cos_row = p.c_over_s + prow;
+  const float* negcf_row = p.neg_cost_floor + prow;
 
   for (int o = tid; o < N; o += kThreads) map[o] = -1;
+  if (tid == 0) {
+    ctl.used = 0;
+    ctl.global = 0;
+  }
 
-  // thread 0's state; the other threads' copies go unused
-  int used = 0, hits = 0, pend = kFresh, vslot = -1, peak = 0;
-  float infl = 0.0f, dollars = 0.0f, vscore = 0.0f;
-  long long scored_steps = 0, scored_slots = 0;
+  Cell c;
+  bool in_global = false;   // warp 0: the table has moved to device memory
 
   for (int t0 = 0; t0 < T; t0 += kChunk) {
     const int n = min(kChunk, T - t0);
-    __syncthreads();   // thread 0 is done with the last chunk
+    __syncthreads();   // warp 0 is done with the last chunk
+    const int chunk_used = ctl.used;
+    int flagged = 0;
     for (int r = tid; r < n; r += kThreads) {
       const int i = p.ids[t0 + r];
+      const int nu = p.nxt[t0 + r];
+      const float tf = __int2float_rn(t0 + r);
+      const float fi = __int2float_rn(p.rank[t0 + r]);
+      const float size = p.sizes[i];
+      const float negcf = negcf_row[i];
+      const float cos = cos_row[i];
+      unsigned nuw = unsigned(nu);
+      if (row.static_row)
+        nuw |= isfinite(cost_belady(nu, size, negcf, tf, T)) ? 0u : kBad;
+      flagged |= nuw >> 31;
+      const float ab = __fadd_rn(__fmul_rn(w[0], tf), __fmul_rn(w[1], fi));
+      const float fc = __fmul_rn(fi, cos);
+      const float wb =
+          __fmul_rn(w[4], nu >= T ? -kBig : -__int2float_rn(nu));
       st_id[r] = i;
-      st_nu[r] = p.nxt[t0 + r];
-      st_rank[r] = p.rank[t0 + r];
+      st_nu[r] = nuw;
       st_cost[r] = cost_row[i];
-      st_cos[r] = cos_row[i];
-      st_negcf[r] = negcf_row[i];
-      st_size[r] = p.sizes[i];
-    }
-    __syncthreads();
-    int j = 0;   // thread 0's next request in the chunk
-    for (;;) {
-      if (tid == 0) {
-        int event = kChunkDone;
-        for (; j < n; ++j) {
-          const int i = st_id[j];
-          int s = -1;
-          if (pend == kFresh) {
-            s = map[i];
-            const bool hit = s >= 0;
-            dollars = __fadd_rn(dollars, hit ? 0.0f : st_cost[j]);
-            hits += hit;
-            if (!hit) {
-              if (used >= budget) {
-                event = kScore;
-                ++scored_steps;
-                scored_slots += used;
-                break;
-              }
-              pend = kAppend;
-            }
-          } else if (pend == kDecided) {
-            if (vslot >= 0) {   // the object takes the victim's slot
-              if (gd_active) infl = vscore;
-              s = vslot;
-              map[sl.obj[s]] = -1;
-              map[i] = s;
-              sl.obj[s] = i;
-              sl.size[s] = st_size[j];
-              sl.negcf[s] = st_negcf[j];
-              pend = kFresh;
-            } else {
-              pend = kAppend;
-            }
-          }
-          if (pend == kAppend) {
-            if (used == capacity) {
-              event = kSpill;
-              break;
-            }
-            s = used++;
-            peak = max(peak, used);
-            map[i] = s;
-            sl.obj[s] = i;
-            sl.size[s] = st_size[j];
-            sl.negcf[s] = st_negcf[j];
-            pend = kFresh;
-          }
-          // the touch: a hit, or the object just inserted
-          const int nu = st_nu[j];
-          sl.sb[s] = fixed_score(w, __int2float_rn(t0 + j),
-                                 __int2float_rn(st_rank[j]), infl, st_cos[j],
-                                 nu, T);
-          sl.nu[s] = nu;
-          sl.touch[s] = t0 + j;
-        }
-        ctl_event = event;
-        ctl_used = used;
-        ctl_t = t0 + j;
-      }
-      __syncthreads();
-      const int event = ctl_event;
-      if (event == kChunkDone) break;
-      const int u = ctl_used;
-      if (event == kSpill) {
-        // the table moves to this cell's region of N slots, once
-        const Slots g = slot_table(p.slots_global + (long long)cell *
-                                   kSlotWords * N, N);
-        for (int s = tid; s < u; s += kThreads) {
-          g.obj[s] = sl.obj[s];
-          g.touch[s] = sl.touch[s];
-          g.nu[s] = sl.nu[s];
-          g.sb[s] = sl.sb[s];
-          g.size[s] = sl.size[s];
-          g.negcf[s] = sl.negcf[s];
-        }
-        sl = g;
-        capacity = N;
-        __syncthreads();
-        continue;
-      }
-      // an evicting step: the minimum of (score, touch, object) over the
-      // cached objects (the requested one is not among them: a miss)
-      const float tf = __int2float_rn(ctl_t);
-      Best b = sentinel();
-      int nan_seen = 0;
-      for (int s = tid; s < u; s += kThreads)
-        take(b, nan_seen,
-             score(sl.sb[s], sl.nu[s], sl.size[s], sl.negcf[s], tf, T, w[5]),
-             sl.touch[s], sl.obj[s]);
-      b = warp_min(b);
-      nan_seen = __any_sync(0xffffffffu, nan_seen);
-      if (lane == 0) winners[warp] = Winner{b, nan_seen};
-      __syncthreads();
-      if (warp == 0) {
-        const Winner x = lane < kWarps ? winners[lane]
-                                       : Winner{sentinel(), 0};
-        const Best r = warp_min(x.best);
-        const int any_nan = __any_sync(0xffffffffu, x.nan_seen);
-        if (tid == 0) {
-          if (any_nan) {   // the plain version's victim 0
-            vslot = map[0];
-            vscore = vslot >= 0
-                         ? score(sl.sb[vslot], sl.nu[vslot], sl.size[vslot],
-                                 sl.negcf[vslot], tf, T, w[5])
-                         : kBig;
-          } else {
-            vscore = r.s;
-            vslot = r.s < kBig ? map[r.i] : -1;
-          }
-          if (!(vscore < kBig)) vslot = -1;   // nothing is evicted
-          pend = kDecided;
-        }
+      st_size[r] = size;
+      st_negcf[r] = negcf;
+      st_cos[r] = cos;
+      st_wb[r] = wb;
+      if (row.gd_active) {
+        st_fc[r] = fc;
+        st_ab[r] = ab;
+      } else {
+        const float sb = touch_score(w, ab, cos, fc, wb, 0.0f);
+        st_ab[r] = sb;
+        st_img[r] = order_image(sb);
       }
     }
+    // a slot can hold kBad only if one did before or the chunk brings one
+    const bool track_bad = __syncthreads_or(flagged) || c.bad > 0;
+    // every warp counts the same scoring warps for this chunk
+    row.nw = warps_for(max(chunk_used, row.budget), one_warp, per_warp);
+    const int team = 32 * row.nw;
+    if (warp >= row.nw) continue;
+
+    if (warp > 0) {   // a helper: score this warp's share of each step
+      for (;;) {
+        bar_sync(kGoBarrier, team);
+        const int ev = ctl.event;
+        if (ev == kChunkDone) break;
+        const int u = ctl.used, first = 32 * warp + lane;
+        const float tf = __int2float_rn(ctl.t);
+        const bool sb_alone = ev & kStatic;
+        const Key win =
+            ctl.global ? score_share(global_table(), u, first, team,
+                                     sb_alone, tf, T, w[5])
+                       : score_share(shared_table, u, first, team, sb_alone,
+                                     tf, T, w[5]);
+        if (lane == 0) winners[warp] = win;
+        bar_arrive(kDoneBarrier, team);
+      }
+      continue;
+    }
+
+    int j = 0;   // the next request of the chunk
+    while (kSpill == (in_global ? replay_chunk(c, j, n, t0, st, map,
+                                               global_table(), N, row,
+                                               track_bad, &ctl, winners)
+                                : replay_chunk(c, j, n, t0, st, map,
+                                               shared_table, p.slots_shared,
+                                               row, track_bad, &ctl,
+                                               winners))) {
+      // the table moves to this cell's region of N slots, once
+      const Slots g = global_table();
+      for (int s = lane; s < c.used; s += 32) {
+        g.key[s] = shared_table.key[s];
+        g.obj[s] = shared_table.obj[s];
+        g.nu[s] = shared_table.nu[s];
+        g.sb[s] = shared_table.sb[s];
+        g.size[s] = shared_table.size[s];
+        g.negcf[s] = shared_table.negcf[s];
+      }
+      in_global = true;
+      if (lane == 0) ctl.global = 1;
+      __syncwarp();
+    }
+    if (row.nw > 1) {   // the helpers leave the chunk
+      if (lane == 0) ctl.event = kChunkDone;
+      bar_arrive(kGoBarrier, team);
+    }
+    if (lane == 0) ctl.used = c.used;   // read by every warp at the next chunk
   }
 
   if (tid == 0) {
-    p.dollars[cell] = dollars;
-    p.hits[cell] = hits;
-    p.work[3 * cell] = scored_steps;
-    p.work[3 * cell + 1] = scored_slots;
-    p.work[3 * cell + 2] = peak;
+    long long* out = p.work + (long long)kWorkWords * cell;
+    p.dollars[cell] = c.dollars;
+    p.hits[cell] = c.hits;
+    out[0] = c.scored_steps;
+    out[1] = c.scored_slots;
+    out[2] = c.peak;
+    out[3] = clock64() - start;
+    out[4] = c.evict_cycles;
   }
 }
 
@@ -348,7 +664,7 @@ extern "C" long long replay_scan_shared_limit() {
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev) != cudaSuccess ||
-      cudaFuncGetAttributes(&attr, replay_scan_kernel) != cudaSuccess)
+      cudaFuncGetAttributes(&attr, replay_scan_kernel<true>) != cudaSuccess)
     return -1;
   return (long long)optin - (long long)attr.sharedSizeBytes;
 }
@@ -356,8 +672,9 @@ extern "C" long long replay_scan_shared_limit() {
 // ids, nxt, rank: (T,) int32; weights (Q, 6), costs, c_over_s and
 // neg_cost_floor (P, N), sizes (N,) float32; budgets (K,) int32; all on the
 // device, contiguous. Writes dollars (C,) float32, hits (C,) int32 and work
-// (C, 3) int64 for C = Q*P*K cells. map_global: (C, N) int32 unless
-// map_shared; slots_global: (C, 6N) int32 unless slots_shared == N.
+// (C, 5) int64 for C = Q*P*K cells. map_global: (C, N) int32 unless
+// map_shared; slots_global: (C, 7 * (N rounded up to even)) int32, 8-byte
+// aligned, unless slots_shared == N.
 // `dynamic_bytes` must be the layout's size as plan() computed it. One
 // launch of C blocks on `stream`; returns its CUDA error, 0 on success.
 extern "C" int replay_scan_launch(
@@ -374,9 +691,9 @@ extern "C" int replay_scan_launch(
       dynamic_bytes != shared_bytes(N, map_shared, slots_shared) ||
       dynamic_bytes > replay_scan_shared_limit())
     return (int)cudaErrorInvalidValue;
+  auto kernel = map_shared ? replay_scan_kernel<true> : replay_scan_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      replay_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)dynamic_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dynamic_bytes);
   if (err != cudaSuccess) return (int)err;
   Params p{static_cast<const int*>(ids),
            static_cast<const int*>(nxt),
@@ -393,7 +710,7 @@ extern "C" int replay_scan_launch(
            static_cast<int*>(map_global),
            static_cast<int*>(slots_global),
            T, N, P, K, map_shared, slots_shared};
-  replay_scan_kernel<<<(int)cells, kThreads, (size_t)dynamic_bytes,
-                       (cudaStream_t)stream>>>(p);
+  kernel<<<(int)cells, kThreads, (size_t)dynamic_bytes,
+           (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -14,11 +14,24 @@ import torch
 
 from . import _build
 
-__all__ = ["replay_scan_cuda", "frequency_rank", "plan"]
+__all__ = ["replay_scan_cuda", "frequency_rank", "plan", "STATIC_WARPS",
+           "FULL_WARPS", "WORK_COLUMNS"]
 
 CHUNK = 512                       # requests a block stages at once
-STAGE_BYTES = CHUNK * 7 * 4       # id, next use, rank, cost, c/s, size, -cost
-SLOT_WORDS = 6                    # object, touch, next use, sb, size, -cost
+# id, next use, cost, size, -cost, c/s, f * c/s, w_t*t + w_f*f (or the whole
+# score part fixed at a touch), w_bel * bel
+STAGE_BYTES = CHUNK * 9 * 4
+# (image of sb, touch) as one 8-byte key, object, next use, sb, size, -cost
+SLOT_WORDS = 7
+# The warps that score an evicting step, (one, per) as csrc/replay_scan.cu's
+# kStaticOne/Per and kFullOne/Per ("The warps follow the table"): one while the
+# table holds at most `one` slots, else one for each `per` slots (2 to 16),
+# for rows whose score is fixed at the touch (w_cb == 0: one 8-byte key a
+# slot, no division) and for the rest (six words and a division a slot).
+STATIC_WARPS = (1024, 320)
+FULL_WARPS = (128, 128)
+WORK_COLUMNS = ("scored_steps", "slots_scored", "peak_slots", "cycles",
+                "evict_cycles")
 
 
 def frequency_rank(ids: np.ndarray) -> np.ndarray:
@@ -46,7 +59,8 @@ def plan(cells: int, num_objects: int, shared_limit: int) -> dict:
     memory (`map_words`). The slot table holds `slots_shared` slots in the
     shared memory left over; when that is fewer than N (a cache can grow to
     all N objects when no score is below 3.4e38), each cell gets a region of
-    N slots in device memory (`slot_words`), into which its table moves if
+    N slots in device memory (`slot_words`, N rounded up to even so that
+    every region's keys are 8-byte aligned), into which its table moves if
     it outgrows the shared one. `shared_bytes`: the dynamic shared memory a
     block takes.
     """
@@ -64,7 +78,8 @@ def plan(cells: int, num_objects: int, shared_limit: int) -> dict:
                 shared_bytes=(STAGE_BYTES + (map_bytes if map_shared else 0)
                               + 4 * SLOT_WORDS * slots_shared),
                 map_words=0 if map_shared else cells * N,
-                slot_words=0 if slots_shared == N else cells * SLOT_WORDS * N)
+                slot_words=(0 if slots_shared == N
+                            else cells * SLOT_WORDS * (N + N % 2)))
 
 
 def _check(weights, ids, nxt, rank, costs, sizes, budgets) -> None:
@@ -107,9 +122,12 @@ def replay_scan_cuda(weights: torch.Tensor, ids: torch.Tensor,
     sizes (N,) float32; budgets (K,) int32; all contiguous CUDA tensors on
     one device. Returns dollars (Q, P, K) float32 and hits (Q, P, K) int32,
     bit-equal to `_replay(use_kernel=False)` on the same inputs, and work
-    (Q, P, K, 3) int64: the steps that scored the cache, the slots scored
-    over them, the largest cache held. Launches one kernel on the current
-    stream, does not synchronise, and raises if the launch is refused.
+    (Q, P, K, 5) int64, columns `WORK_COLUMNS`: the steps that scored the
+    cache, the slots on them (the cache's size on each), the largest cache
+    held, the cell's clock64() cycles from start to end and those spent from
+    reaching an evicting step to its victim. Launches one kernel on the
+    current stream, does not synchronise, and raises if the launch is
+    refused.
     """
     _check(weights, ids, nxt, rank, costs, sizes, budgets)
     lib = _build.library()
@@ -123,7 +141,8 @@ def replay_scan_cuda(weights: torch.Tensor, ids: torch.Tensor,
         neg_cost_floor = -torch.clamp_min(costs, 1e-30)
         dollars = torch.empty((Q, P, K), dtype=torch.float32, device=dev)
         hits = torch.empty((Q, P, K), dtype=torch.int32, device=dev)
-        work = torch.empty((Q, P, K, 3), dtype=torch.int64, device=dev)
+        work = torch.empty((Q, P, K, len(WORK_COLUMNS)), dtype=torch.int64,
+                           device=dev)
         map_g = torch.empty(layout["map_words"], dtype=torch.int32,
                             device=dev)
         slots_g = torch.empty(layout["slot_words"], dtype=torch.int32,

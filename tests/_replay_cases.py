@@ -5,16 +5,25 @@ the CPU tests (`test_torch_replay_scan.py`) and the card's
 Every case is a full grid: the six policies, a mixed weight row and a
 reversed Belady (w_bel = -1: an object never used again scores 3.4e38, so
 when every cached object is one, nothing is evicted and the cache grows),
-two price vectors, and budgets 0, 1, a small one, N and past N.
+two price vectors, and budgets 0, 1, a small one, N and past N (except
+`warp_edges`, whose budgets sit at the kernel's warp thresholds).
 """
 import numpy as np
 
 from repro_torch.core.policies_torch import stack_policy_weights
+from repro_torch.kernels.replay_scan import FULL_WARPS, STATIC_WARPS
 
 POLICIES = ["lru", "lfu", "gds", "gdsf", "belady", "cost_belady"]
 MIXED = np.array([0.5, 0.25, 1.0, 0.75, 0.125, 2.0], np.float32)
 REVERSED_BELADY = np.array([0, 0, 0, 0, -1.0, 0], np.float32)
-CASES = ["pow2", "lognormal", "overflow", "ties"]
+# rows whose scores are signed zeros: every weight -0.0 but w_bel (sb is
+# -0.0), w_gd = w_cb = -0.0 (sb is +0.0), and GreedyDual-Size with w_cb = -0.0
+# (infl takes the victims' signed zeros)
+SIGNED_ZERO_ROWS = np.array([[-0.0, -0.0, -0.0, -0.0, 0.0, -0.0],
+                             [0.0, 0.0, -0.0, 0.0, 0.0, -0.0],
+                             [0.0, 0.0, 1.0, 0.0, 0.0, -0.0]], np.float32)
+CASES = ["pow2", "lognormal", "overflow", "ties", "signed_zero",
+         "finite_later", "warp_edges"]
 
 
 def weights() -> np.ndarray:
@@ -24,6 +33,30 @@ def weights() -> np.ndarray:
 
 def budgets(N: int) -> np.ndarray:
     return np.array([0, 1, 7, N, N + 3], np.int32)
+
+
+def scoring_warps(u: int, one: int, per: int) -> int:
+    """The kernel's warps_for: one warp up to `one` slots, else one a `per`
+    slots, 2 to 16."""
+    return 1 if u <= one else min(16, max(2, -(-u // per)))
+
+
+def warp_thresholds() -> list:
+    """For each path's rule, the two smallest tables after which a cell
+    takes more scoring warps: the one-warp limit and the next step."""
+    out = []
+    for one, per in (STATIC_WARPS, FULL_WARPS):
+        step = next(u for u in range(one + 1, one + 16 * per + 2)
+                    if scoring_warps(u + 1, one, per)
+                    != scoring_warps(u, one, per))
+        out += [one, step]
+    return out
+
+
+def warp_budgets() -> np.ndarray:
+    """Tables one below, at and one above each of `warp_thresholds`."""
+    return np.array(sorted({b + d for b in warp_thresholds()
+                            for d in (-1, 0, 1)}), np.int32)
 
 
 def make(name: str, seed: int = 0) -> dict:
@@ -40,8 +73,57 @@ def make(name: str, seed: int = 0) -> dict:
                cost-Belady's term to -inf.
     ties:      unit costs and sizes: GreedyDual's, LFU's and Belady's
                never-again scores tie, and the touch decides.
+    signed_zero: costs of +0.0 and -0.0, sizes of +0.0, -0.0 and 1, and the
+               rows of SIGNED_ZERO_ROWS besides the usual ones: scores of
+               -0.0 and +0.0 tie, the touch breaks them, and GreedyDual's
+               infl carries a victim's signed zero into later scores.
+    finite_later: sizes 1 but for objects 0 and 1, of size
+               2e38, costs from 1 to 8, so that size * gap overflows while
+               gap >= 2 and not at gap 1: a big object's cb term is -inf at
+               a touch whose next use is two or more steps on, 0 * cb is
+               NaN, and rows with w_cb = 0 score in full until the slot is
+               touched again with a finite term (a request on the next
+               step, or none) or evicted.
+    warp_edges: a sweep over all objects, then uniform requests; budgets at
+               each warp threshold of `warp_budgets`, less, and one more.
     """
     rng = np.random.default_rng([CASES.index(name), seed])
+    w = weights()
+    if name == "signed_zero":
+        T, N = 400, 40
+        ids = rng.integers(0, N, T)
+        cm = np.stack([np.zeros(N), rng.choice([0.0, -0.0], N)])
+        sizes = rng.choice([0.0, -0.0, 1.0], N)
+        w = np.concatenate([w, SIGNED_ZERO_ROWS])
+        return dict(weights=w, ids=ids.astype(np.int32),
+                    costs=cm.astype(np.float32),
+                    sizes=sizes.astype(np.float32), budgets=budgets(N))
+    if name == "finite_later":
+        T, N = 400, 30
+        big = np.array([0, 1])
+        ids = rng.integers(len(big), N, T)
+        # a big object b comes as (b, b): the first touch's term is finite
+        # (gap 1); or as (b, x, b): -inf at the first touch (gap 2), finite
+        # on x's step (gap 1), where a row that evicts the soonest next use
+        # takes it
+        for t in rng.choice(T - 2, 12, replace=False):
+            b = rng.choice(big)
+            ids[t] = ids[t + 1 + (rng.random() < 0.5)] = b
+        sizes = np.ones(N)
+        sizes[big] = 2e38
+        cm = np.stack([np.ones(N), 2.0 ** rng.integers(0, 4, N)])
+        return dict(weights=w, ids=ids.astype(np.int32),
+                    costs=cm.astype(np.float32),
+                    sizes=sizes.astype(np.float32), budgets=budgets(N))
+    if name == "warp_edges":
+        b = warp_budgets()
+        N = int(b.max()) + 64
+        ids = np.concatenate([rng.permutation(N), rng.integers(0, N, 1200)])
+        cm = rng.lognormal(-12.0, 1.5, (2, N))
+        sizes = rng.lognormal(8.0, 2.0, N)
+        return dict(weights=w, ids=ids.astype(np.int32),
+                    costs=cm.astype(np.float32),
+                    sizes=sizes.astype(np.float32), budgets=b)
     if name == "overflow":
         T, N = 300, 30
         ids = rng.integers(0, N, T)
@@ -67,6 +149,6 @@ def make(name: str, seed: int = 0) -> dict:
         else:
             cm = rng.lognormal(-12.0, 1.5, (2, N))
             sizes = rng.lognormal(8.0, 2.0, N)
-    return dict(weights=weights(), ids=ids.astype(np.int32),
+    return dict(weights=w, ids=ids.astype(np.int32),
                 costs=cm.astype(np.float32), sizes=sizes.astype(np.float32),
                 budgets=budgets(N))

@@ -3,15 +3,24 @@
 The kernel (`src/repro_torch/kernels/csrc/replay_scan.cu`) cannot run here,
 so a numpy model of its per-cell algorithm does: a slot table with an
 object -> slot map, the victim taking the displacing object's slot, the
-argmin only on steps that evict, the NaN rule, and the table growing past
-its budget. The model repeats the kernel's float32 operations in its order
-and is held bit for bit to the JAX replay (`_simulate` with
-`use_pallas=False`, `sweep_jax`) and to the port's step loop, the kernel's
-plain version, on the grids of `tests/_replay_cases.py`. The wrapper's host
-side (the frequency rank, the layout plan, its input checks) is tested
-here too; the kernel itself is held to the step loop on the card in
+argmin only on steps that evict, as the order image of the score and then
+the touch (touches of cached objects are distinct; the model checks that),
+the static path (rows with w_cb = 0 compare sb alone while no cached
+slot's cost-Belady term was non-finite at its touch, the victim's score
+recomputed in full), runs of hits resolved a window of 32 requests at a
+time (each slot touched by the run's last request to it), the NaN rule,
+and the table growing past its budget.
+The model repeats the kernel's float32 operations in its order and is held
+bit for bit to the JAX replay (`_simulate` with `use_pallas=False`,
+`sweep_jax`) and to the port's step loop, the kernel's plain version, on
+the grids of `tests/_replay_cases.py`. The wrapper's host side (the
+frequency rank, the layout plan, its input checks) is tested here too; the
+kernel itself is held to the step loop on the card in
 `tests/test_torch_cuda.py`.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,19 +32,30 @@ from repro.core.trace import next_use_indices
 from repro_torch.core import policies_torch as pt
 from repro_torch.kernels import ops
 from repro_torch.kernels.replay_scan import (CHUNK, SLOT_WORDS, STAGE_BYTES,
-                                             frequency_rank, plan,
-                                             replay_scan_cuda)
+                                             FULL_WARPS, STATIC_WARPS,
+                                             frequency_rank,
+                                             plan, replay_scan_cuda)
 
 import _replay_cases as cases
 
 f32 = np.float32
 BIG = f32(3.4e38)
+EMPTY = np.uint32(0xFFFFFFFF)
 # an H100 block's opt-in shared memory less about the kernel's static part
 H100_SHARED = 232_448 - 272
 
 
+def order_image(x):
+    """argmin_rule.cuh's order_image: uint32 words in the floats' order,
+    -0.0 folded onto 0.0 (NaN has no place; callers leave it out)."""
+    b = np.asarray(x, f32).view(np.uint32).copy()
+    b[(b << np.uint32(1)) == 0] = 0
+    return np.where(b & np.uint32(0x80000000), ~b,
+                    b | np.uint32(0x80000000)).astype(np.uint32)
+
+
 def _fixed_score(w, tf, fi, infl, cos, nu, T):
-    """static + w_bel * bel at a touch (csrc/replay_scan.cu, fixed_score)."""
+    """static + w_bel * bel at a touch (csrc/replay_scan.cu, touch_score)."""
     a = w[0] * tf
     b = w[1] * fi
     c = w[2] * (infl + cos)
@@ -45,11 +65,16 @@ def _fixed_score(w, tf, fi, infl, cos, nu, T):
     return stat + w[4] * bel
 
 
+def _cost_belady(nu, size, negcf, tf, T):
+    """cb at step tf (csrc/replay_scan.cu, cost_belady), elementwise."""
+    gap = np.maximum(np.asarray(nu).astype(f32) - tf, f32(1.0))
+    return np.where(np.asarray(nu) >= T, -BIG, (size * gap) / negcf)
+
+
 def _scores(sb, nu, size, negcf, tf, T, w_cb):
-    """Every cached slot's score at step tf (csrc/replay_scan.cu, score)."""
-    gap = np.maximum(nu.astype(f32) - tf, f32(1.0))
-    cb = np.where(nu >= T, -BIG, (size * gap) / negcf)
-    return sb + w_cb * cb
+    """Every cached slot's score at step tf (csrc/replay_scan.cu,
+    slot_score)."""
+    return sb + w_cb * _cost_belady(nu, size, negcf, tf, T)
 
 
 def model_cell(w, ids, nxt, rank, cost, cos, negcf, size, budget):
@@ -57,53 +82,112 @@ def model_cell(w, ids, nxt, rank, cost, cos, negcf, size, budget):
     the edges the run reached."""
     T, N = len(ids), len(cost)
     gd_active = (w[2] + w[3]) > 0
+    static_row = w[5] == 0
     slot_of = np.full(N, -1)
     obj = np.zeros(N, np.int64)
     touch = np.zeros(N, np.int64)
     nu = np.zeros(N, np.int64)
+    flag = np.zeros(N, bool)     # the slot's term was not finite at its touch
     sb = np.zeros(N, f32)
     sz = np.zeros(N, f32)
     ncf = np.zeros(N, f32)
-    used, hits, infl, dollars = 0, 0, f32(0), f32(0)
-    seen = dict(scored=0, nan=0, touch_ties=0, kept=0, peak=0)
-    for t in range(T):
+    used, hits, infl, dollars, bad = 0, 0, f32(0), f32(0), 0
+    seen = dict(scored=0, nan=0, touch_ties=0, signed_ties=0, kept=0,
+                peak=0, static=0, full_static=0, static_after_clear=0,
+                most_bad=0, cleared_by_touch=0, cleared_by_evict=0,
+                run_hits=0, run_repeats=0)
+    cleared = False
+
+    def bad_at(t):
+        """The request's cost-Belady term is not finite at its own step."""
+        i = int(ids[t])
+        return bool(static_row and not np.isfinite(_cost_belady(
+            nxt[t], size[i], negcf[i], f32(t), T)))
+
+    def touch_slot(s, t):
+        sb[s] = _fixed_score(w, f32(t), f32(rank[t]), infl, cos[int(ids[t])],
+                             int(nxt[t]), T)
+        nu[s], touch[s], flag[s] = nxt[t], t, bad_at(t)
+
+    t = 0
+    while t < T:
+        # a window of up to 32 requests inside the 512-request chunk: every
+        # request before the first miss is a hit as of its own step
+        end = min(t + 32, (t // CHUNK + 1) * CHUNK, T)
+        window = slot_of[ids[t:end]]
+        h = int(np.argmax(window < 0)) if (window < 0).any() else end - t
+        if h:
+            run = window[:h]
+            last = {int(s): t + k for k, s in enumerate(run)}
+            seen["run_hits"] += h
+            seen["run_repeats"] += h - len(last)
+            for s, r in last.items():      # the run's last request per slot
+                was_bad = flag[s]
+                bad += int(bad_at(r)) - int(was_bad)
+                if was_bad and bad == 0:
+                    seen["cleared_by_touch"] += 1
+                touch_slot(s, r)
+            hits += h
+            t += h
+            seen["most_bad"] = max(seen["most_bad"], bad)
+            cleared = cleared or (seen["most_bad"] > 0 and bad == 0)
+            if h == end - (t - h):
+                continue
+        # request t misses
         i, tf = int(ids[t]), f32(t)
-        s = slot_of[i]
-        hit = s >= 0
-        dollars = dollars + (f32(0) if hit else cost[i])
-        hits += hit
-        if not hit:
-            victim, vscore = -1, BIG
-            if used >= budget:
-                seen["scored"] += 1
-                raw = _scores(sb[:used], nu[:used], sz[:used], ncf[:used], tf,
-                              T, w[5])
-                if np.isnan(raw).any():          # the plain min is NaN
-                    seen["nan"] += 1
-                    victim = slot_of[0]
-                    vscore = raw[victim] if victim >= 0 else BIG
-                elif used:
-                    low = raw.min()
-                    tied = np.flatnonzero(raw == low)
-                    seen["touch_ties"] += len(tied) > 1
-                    pick = tied[np.lexsort((obj[tied], touch[tied]))[0]]
-                    victim, vscore = pick, raw[pick]
-                if not vscore < BIG:
-                    victim = -1
-                    seen["kept"] += 1
-            if victim >= 0:                      # i takes the victim's slot
-                if gd_active:
-                    infl = vscore
-                slot_of[obj[victim]] = -1
-                s = victim
-            else:                                # append: may pass the budget
-                s = used
-                used += 1
-                seen["peak"] = max(seen["peak"], used)
-            slot_of[i] = s
-            obj[s], sz[s], ncf[s] = i, size[i], negcf[i]
-        sb[s] = _fixed_score(w, tf, f32(rank[t]), infl, cos[i], int(nxt[t]), T)
-        nu[s], touch[s] = nxt[t], t
+        dollars = dollars + cost[i]
+        victim, evict = -1, False
+        if used >= budget:
+            seen["scored"] += 1
+            raw = _scores(sb[:used], nu[:used], sz[:used], ncf[:used], tf,
+                          T, w[5])
+            if static_row and bad == 0:       # sb alone
+                seen["static"] += 1
+                seen["static_after_clear"] += cleared
+                keys = sb[:used]
+            else:
+                seen["full_static"] += static_row
+                keys = raw
+            if np.isnan(keys).any():          # the plain min is NaN
+                seen["nan"] += 1
+                victim = slot_of[0]
+                vscore = raw[victim] if victim >= 0 else BIG
+                evict = vscore < BIG
+            elif used:
+                img = order_image(keys)
+                tied = np.flatnonzero(img == img.min())
+                assert len(set(touch[tied])) == len(tied)
+                seen["touch_ties"] += len(tied) > 1
+                zeros = raw[tied][raw[tied] == 0]
+                seen["signed_ties"] += len(set(np.signbit(zeros))) > 1
+                victim = tied[np.argmin(touch[tied])]
+                if gd_active:                 # recomputed in full
+                    vscore = raw[victim]
+                    evict = vscore < BIG
+                else:
+                    evict = img.min() < order_image(BIG)
+            if not evict:
+                victim = -1
+                seen["kept"] += 1
+        if victim >= 0:                      # i takes the victim's slot
+            if gd_active:
+                infl = vscore
+            if flag[victim] and bad == 1:
+                seen["cleared_by_evict"] += 1
+            bad -= int(flag[victim])
+            slot_of[obj[victim]] = -1
+            s = victim
+        else:                                # append: may pass the budget
+            s = used
+            used += 1
+            seen["peak"] = max(seen["peak"], used)
+        slot_of[i] = s
+        obj[s], sz[s], ncf[s] = i, size[i], negcf[i]
+        touch_slot(s, t)
+        bad += int(flag[s])
+        seen["most_bad"] = max(seen["most_bad"], bad)
+        cleared = cleared or (seen["most_bad"] > 0 and bad == 0)
+        t += 1
     return dollars, hits, seen
 
 
@@ -192,7 +276,9 @@ def test_cases_reach_the_kernels_edges():
     """Each edge the kernel handles on its own path is taken somewhere:
     the NaN rule (victim object 0, evicted and kept), scores at 3.4e38 or
     more keeping every object, growth past the budget, ties the touch
-    breaks, budgets 0 and past N."""
+    breaks, signed zeros among them, budgets 0 and past N, the static
+    path leaving for the full score and coming back, and tables at the
+    warp thresholds."""
     seen = {name: _grid(name)[2] for name in cases.CASES}
     overflow = seen["overflow"]
     assert sum(s["nan"] for s in overflow) > 100
@@ -210,6 +296,79 @@ def test_cases_reach_the_kernels_edges():
     assert all(s["peak"] >= 1 for s in grid[:, :, 0].ravel())
     # budget N and past N: nothing is ever scored
     assert all(s["scored"] == 0 for s in grid[:, :, 3:].ravel())
+    # every static row of every case takes the static path somewhere
+    assert sum(s["static"] for name in cases.CASES for s in seen[name]) > 1000
+    # signed zeros tie and the touch breaks them, on the static path too
+    zero = seen["signed_zero"]
+    assert sum(s["signed_ties"] for s in zero) > 100
+    assert sum(s["static"] for s in zero) > 100
+    # a term non-finite at its touch sends static rows to the full score,
+    # and the count comes back to 0 by a touch and by an eviction
+    later = seen["finite_later"]
+    assert sum(s["full_static"] for s in later) > 100
+    assert sum(s["cleared_by_touch"] for s in later) > 0
+    assert sum(s["cleared_by_evict"] for s in later) > 0
+    assert sum(s["static_after_clear"] for s in later) > 0
+    # hits go in runs, and a run meets the same slot more than once
+    assert sum(s["run_hits"] for s in seen["ties"]) > 1000
+    assert sum(s["run_repeats"] for s in seen["ties"]) > 100
+    # every warp-threshold table fills and evicts
+    edges = cases.make("warp_edges")
+    for s, k in zip(seen["warp_edges"],
+                    np.tile(np.arange(len(edges["budgets"])),
+                            len(edges["weights"]) * 2)):
+        assert s["peak"] >= int(edges["budgets"][k]) and s["scored"] > 0
+
+
+def test_order_image_keeps_the_float_order():
+    """The image's order is the floats' (-0.0 and 0.0 tie), +inf's image
+    is below the empty lane's word, and a NaN has no image in the order."""
+    rng = np.random.default_rng(3)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, 1e-45, -1e-45, 3.4e38,
+                        -3.4e38, 1.0, -1.0], f32)
+    x = np.concatenate([special, rng.standard_normal(500).astype(f32)
+                        * f32(10.0) ** rng.integers(-40, 38, 500)]).astype(f32)
+    img = order_image(x)
+    a, b = np.meshgrid(np.arange(len(x)), np.arange(len(x)))
+    np.testing.assert_array_equal(img[a] < img[b], x[a] < x[b])
+    np.testing.assert_array_equal(img[a] == img[b], x[a] == x[b])
+    assert order_image(np.inf)[()] < EMPTY
+    assert int(order_image(np.inf)) == 0xFF800000
+
+
+def test_layout_constants_mirror_the_kernel_source():
+    """replay_scan.py's copies of the kernel's fixed layout and warp rule
+    are the values csrc/replay_scan.cu compiles."""
+    src = (Path(ops.__file__).parent / "csrc" / "replay_scan.cu").read_text()
+
+    def ints(pattern):
+        m = re.search(pattern, src)
+        assert m, pattern
+        return tuple(map(int, m.groups()))
+
+    assert ints(r"constexpr int kChunk = (\d+);") == (CHUNK,)
+    assert ints(r"constexpr int kSlotWords = (\d+);") == (SLOT_WORDS,)
+    assert ints(r"constexpr int kStageWords = (\d+);") == (
+        STAGE_BYTES // (4 * CHUNK),)
+    assert ints(r"constexpr int kStaticOne = (\d+), kStaticPer = (\d+);") \
+        == STATIC_WARPS
+    assert ints(r"constexpr int kFullOne = (\d+), kFullPer = (\d+);") == \
+        FULL_WARPS
+
+
+def test_warp_budgets_straddle_the_thresholds():
+    """warp_edges holds tables one below, at and one above each size where
+    a cell of either path takes more scoring warps."""
+    b = set(cases.warp_budgets().tolist())
+    rules = (STATIC_WARPS, FULL_WARPS)
+    for one, per in rules:
+        assert 1 <= per <= one
+        assert {one - 1, one, one + 1} <= b
+        assert cases.scoring_warps(one + 1, one, per) >= 2
+    for u in cases.warp_thresholds():
+        assert {u - 1, u, u + 1} <= b
+        assert any(cases.scoring_warps(u + 1, one, per)
+                   > cases.scoring_warps(u, one, per) for one, per in rules)
 
 
 def test_frequency_rank_equals_the_step_loops_counts():
@@ -231,8 +390,9 @@ def test_frequency_rank_equals_the_step_loops_counts():
     (96, 2_000, True, True),       # the parity grid: all in shared memory
     (4, 2**17, False, False),      # map and spilled slots in device memory
     (1, 1, True, True),
-    (200, 27_228, True, False),    # the largest map kept in shared memory
-    (200, 27_229, False, False),
+    (200, 26_716, True, False),    # the largest map kept in shared memory
+    (200, 26_717, False, False),
+    (3, 2**17 - 1, False, False),  # odd N: the device regions' stride is even
 ])
 def test_plan_places_map_and_slots_by_size(cells, N, map_shared, all_shared):
     p = plan(cells, N, H100_SHARED)
@@ -240,13 +400,14 @@ def test_plan_places_map_and_slots_by_size(cells, N, map_shared, all_shared):
     assert (p["slots_shared"] == N) == all_shared
     assert p["shared_bytes"] <= H100_SHARED
     assert p["map_words"] == (0 if map_shared else cells * N)
-    assert p["slot_words"] == (0 if all_shared else cells * SLOT_WORDS * N)
+    assert p["slot_words"] == (0 if all_shared
+                               else cells * SLOT_WORDS * (N + N % 2))
     left = H100_SHARED - p["shared_bytes"]
     # the shared table takes all the room it can
     assert all_shared or left < 4 * SLOT_WORDS
     if N == 20_000:
         assert p["slots_shared"] >= 2560      # the largest main-path budget
-    assert STAGE_BYTES == CHUNK * 7 * 4
+    assert STAGE_BYTES == CHUNK * 9 * 4
 
 
 def test_plan_refuses_a_block_with_no_slot():
