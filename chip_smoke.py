@@ -897,24 +897,25 @@ def phase_replay_profile(full: dict, tries: int = 3) -> dict:
     round first and `profiler_primer` opens the recorded one, as in
     `device_time`), retaken when it lost the replay_scan kernel's event:
     the device time of each kernel and copy, against replay_full's
-    unprofiled execute_s for the device's busy share.
-    Then the host's parts, each timed alone and synchronised: the frequency
-    rank, the uploads, next(t), the kernel's window and the copy back.
+    unprofiled execute_s for the device's busy share, and the host time of
+    each of `sweep_torch`'s own spans (`repro_torch.sweep.*`, on the
+    trace's clock) in the recorded call. The recorded call's
+    `profile["work"]` gives each cell's cycles (`replay_cells`).
     Returns the kernel's device time, which the kernel line's full-shape
-    row takes: `device_time` of the kernel alone, late in the script, came
-    back with no event in every try."""
+    row takes (`device_time` of the kernel alone, late in the script, came
+    back with no event in every try), and those counters."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     tr, cm = full["trace"], full["cm"]
     N = tr.num_objects
 
-    def sweep():
+    def sweep(counters=None):
         sweep_torch(POLICIES, tr.ids, cm, FULL_BUDGETS, num_objects=N,
-                    sizes=tr.sizes)
+                    sizes=tr.sizes, profile=counters)
 
     sweep()
     for attempt in range(1, tries + 1):
-        traces, walls = [], []
+        traces, walls, counters = [], [], {}
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
@@ -924,10 +925,11 @@ def phase_replay_profile(full: dict, tries: int = 3) -> dict:
                 if rnd:
                     profiler_primer()
                 t0 = time.perf_counter()
-                sweep()
+                sweep(counters)
                 walls.append(time.perf_counter() - t0)
                 prof.step()
-        on_card = [e for e in (traces[-1] if traces else [])
+        events = traces[-1] if traces else []
+        on_card = [e for e in events
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0
                    and not e.key.startswith("ProfilerStep")
@@ -944,39 +946,23 @@ def phase_replay_profile(full: dict, tries: int = 3) -> dict:
         device_ms[name] = (device_ms.get(name, 0.0)
                            + e.self_device_time_total / 1e3)
     kernel_ms = scan[0].self_device_time_total / 1e3
-    dev = torch.device("cuda")
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    rank, rank_s = timed(lambda: frequency_rank(tr.ids))
-    x, upload_s = timed(lambda: dict(
-        weights=torch.tensor(stack_policy_weights(POLICIES), device=dev),
-        ids=torch.tensor(tr.ids.astype(np.int32), device=dev),
-        rank=torch.tensor(rank, device=dev),
-        costs=torch.tensor(cm.astype(np.float32), device=dev),
-        sizes=torch.tensor(tr.sizes.astype(np.float32), device=dev),
-        budgets=torch.tensor(FULL_BUDGETS.astype(np.int32), device=dev)))
-    nxt, next_use_s = timed(lambda: next_use_cuda(x["ids"], N))
-    (d, h, _), kernel_s = timed(lambda: replay_scan_cuda(nxt=nxt, **x))
-    _, copy_s = timed(lambda: (d.cpu().numpy(), h.cpu().numpy()))
+    spans_ms = {e.key: e.cpu_time_total / 1e3 for e in events
+                if e.key.startswith("repro_torch.sweep")
+                and e.device_type == DeviceType.CPU}
     total_ms = sum(device_ms.values())
-    emit("replay_profile", n_requests=tr.num_requests, cells=d.numel(),
+    cells = replay_cells(counters["work"], FULL_BUDGETS, tr.num_requests)
+    emit("replay_profile", n_requests=tr.num_requests, cells=counters["cells"],
          execute_s_unprofiled=full["execute_s"], profiled_wall_s=walls[-1],
          tries=attempt, device_ms=device_ms, device_ms_total=total_ms,
          replay_scan_device_ms=kernel_ms,
          device_busy_share=total_ms / 1e3 / full["execute_s"],
          replay_scan_share=kernel_ms / 1e3 / full["execute_s"],
-         host_parts_s=dict(frequency_rank=rank_s, uploads=upload_s,
-                           next_use=next_use_s, replay_scan_window=kernel_s,
-                           copy_back=copy_s),
-         host_parts_note="each part alone, synchronised; sweep_torch runs "
-                         "them in this order")
-    return dict(ms=kernel_ms, kernels={"replay_scan_kernel": kernel_ms})
+         spans_ms=spans_ms,
+         spans_note="sweep_torch's own spans in the recorded call: "
+                    "repro_torch.sweep holds the others",
+         cell_cycles={k: v for k, v in cells.items() if k != "cycles_all"})
+    return dict(ms=kernel_ms, kernels={"replay_scan_kernel": kernel_ms},
+                work=counters["work"])
 
 
 L2_FLUSH_BYTES = 256 << 20   # five times the H100's 50 MB L2
@@ -1078,13 +1064,16 @@ def device_time(fn, reps: int = 20, flush: L2Flush | None = None,
     return dict(ms=sum(by_name.values()), kernels=by_name)
 
 
-def replay_cells(work: torch.Tensor, budgets, T: int) -> dict:
+def replay_cells(work, budgets, T: int) -> dict:
     """Where one replay_scan launch over the (POLICIES x PRICES x budgets)
-    grid spent its cycles, from its work counters: the slowest and the
+    grid spent its cycles, from its work counters (a tensor, or the numpy
+    `profile["work"]` of a sweep): the slowest and the
     median cell by clock64() cycles, each with its evicting steps, the
     cycles from reaching them to their victims (share and per step), and
     the rest (the walk, staging and chunk barriers) per request."""
-    w = work.cpu().numpy().reshape(-1, len(WORK_COLUMNS))
+    if isinstance(work, torch.Tensor):
+        work = work.cpu().numpy()
+    w = np.asarray(work).reshape(-1, len(WORK_COLUMNS))
     col = {name: w[:, j] for j, name in enumerate(WORK_COLUMNS)}
     shape = (len(POLICIES), len(PRICES), len(budgets))
     order = np.argsort(col["cycles"], kind="stable")
@@ -1155,8 +1144,8 @@ def replay_scan_rows(dev, errs: dict, launches: dict, shapes: list) -> list:
     counters, against 67 TFLOP/s; `bound_path_ms` counts the static path's
     slots (`static_path_slots`) at STATIC_OPS each and the rest at
     SCORE_OPS. `cells`: the slowest and the median
-    cell's cycles (`replay_cells`), with the SM clock sampled during the
-    window."""
+    cell's cycles (`replay_cells`, at the full shape from replay_profile's
+    sweep), with the SM clock sampled during the window."""
     rows = []
     for label, tr, cm, budgets, plain_s, reps, on_card in shapes:
         x = replay_inputs(stack_policy_weights(POLICIES), tr.ids, cm,
@@ -1165,7 +1154,10 @@ def replay_scan_rows(dev, errs: dict, launches: dict, shapes: list) -> list:
         def kernel(x=x):
             return replay_scan_cuda(**x)
 
-        _, _, work = kernel()
+        if on_card is None:
+            _, _, work = kernel()
+        else:       # the counters of replay_profile's recorded sweep
+            work = torch.as_tensor(on_card["work"], device=dev)
         Q, (P, N), K, T = len(POLICIES), cm.shape, len(budgets), \
             tr.num_requests
         C = Q * P * K

@@ -31,15 +31,24 @@ the reference's step-for-step form): there the victim argmin goes through
 
 Uniform-size pages (the exact reference's regime): one eviction per miss.
 Variable sizes stay on the host reference (`policies.py`).
+
+While a `torch.profiler` runs, `sweep_torch` opens a range for each of its
+phases (`repro_torch.sweep`, then `.prepare`, `.next_use`,
+`.frequency_rank` on the card, `.replay`, `.copy_back`), on the clock of
+the trace's kernels and copies. They are plain op ranges, not user
+annotations, so the profiler copies none of them onto the device's
+timeline; with no profiler running a range is one flag check.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections.abc import Sequence
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from . import carry
 from ..kernels import _build, ops
@@ -49,6 +58,7 @@ __all__ = ["PolicyWeights", "POLICY_WEIGHTS", "simulate_torch", "sweep_torch",
            "stack_policy_weights", "resolve_device"]
 
 _BIG = 3.4e38
+_NO_SPAN = contextlib.nullcontext()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,6 +251,18 @@ def _simulate(ids, nxt, costs: torch.Tensor, sizes: torch.Tensor,
     return d, h
 
 
+def _span(name: str = ""):
+    """The profiler range `repro_torch.sweep<name>` while a profiler runs,
+    else a shared no-op: one flag check, where even an unrecorded
+    `record_function` costs microseconds. A `_RecordFunctionFast` range has
+    the scope of an op: the profiler keeps it on the host and, unlike a
+    `record_function` (a user annotation), copies none of it onto the
+    device's timeline, where it would read as device work."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast("repro_torch.sweep" + name)
+
+
 def _prepare(ids, costs, num_objects, sizes, dev):
     ids = np.asarray(ids, dtype=np.int32)
     n = int(num_objects if num_objects is not None else ids.max() + 1)
@@ -286,7 +308,10 @@ def sweep_torch(policy, ids: np.ndarray, cost_matrix: np.ndarray,
                  False -> the plain versions on any device.
     profile:     pass a dict to get `compile_s` (building and loading the
                  kernel library; ~0 once loaded), `execute_s` (next(t) plus
-                 the replay, synchronised) and `cells`.
+                 the replay, synchronised) and `cells`; on the kernel path
+                 also `work`, `replay_scan`'s counters as int64 numpy of
+                 dollars' shape plus a last axis in `WORK_COLUMNS` order,
+                 copied back after the results (none without `profile`).
     device:      None -> CUDA, raising when there is no card.
     return_hits: also return the hit counts, int32 of the same shape.
     """
@@ -300,26 +325,40 @@ def sweep_torch(policy, ids: np.ndarray, cost_matrix: np.ndarray,
     if use_k:
         _build.library()
     t1 = time.perf_counter()
-    ids, ids_t, n, sizes_t, costs_t = _prepare(ids, cost_matrix, num_objects,
-                                               sizes, dev)
-    if costs_t.dim() != 2:
-        raise ValueError("cost_matrix must have shape (P, N)")
-    weights = carry.weight_stack(stack, dev)
-    budgets_t = torch.as_tensor(np.asarray(budgets, dtype=np.int32),
-                                device=dev)
-    nxt_t = ops.next_use(ids_t, n, use_kernel=use_k)
-    if use_k:
-        rank_t = torch.as_tensor(frequency_rank(ids), device=dev)
-        dollars, hits, _ = replay_scan_cuda(weights, ids_t, nxt_t, rank_t,
-                                            costs_t, sizes_t, budgets_t)
-    else:
-        dollars, hits, _ = _replay(weights, ids, _host_ints(nxt_t), costs_t,
-                                   sizes_t, budgets_t, use_kernel=False)
-    out, hit_counts = carry.to_numpy(dollars), carry.to_numpy(hits)
-    t2 = time.perf_counter()
+    with _span():
+        with _span(".prepare"):
+            ids, ids_t, n, sizes_t, costs_t = _prepare(
+                ids, cost_matrix, num_objects, sizes, dev)
+            if costs_t.dim() != 2:
+                raise ValueError("cost_matrix must have shape (P, N)")
+            weights = carry.weight_stack(stack, dev)
+            budgets_t = torch.as_tensor(np.asarray(budgets, dtype=np.int32),
+                                        device=dev)
+        with _span(".next_use"):
+            nxt_t = ops.next_use(ids_t, n, use_kernel=use_k)
+        work = None
+        if use_k:
+            with _span(".frequency_rank"):
+                rank_t = torch.as_tensor(frequency_rank(ids), device=dev)
+            with _span(".replay"):
+                dollars, hits, work = replay_scan_cuda(
+                    weights, ids_t, nxt_t, rank_t, costs_t, sizes_t,
+                    budgets_t)
+        else:
+            with _span(".replay"):
+                dollars, hits, _ = _replay(weights, ids, _host_ints(nxt_t),
+                                           costs_t, sizes_t, budgets_t,
+                                           use_kernel=False)
+        with _span(".copy_back"):
+            out, hit_counts = carry.to_numpy(dollars), carry.to_numpy(hits)
+            if profile is not None and work is not None:
+                work = carry.to_numpy(work)
+        t2 = time.perf_counter()
     if profile is not None:
         profile.update(compile_s=t1 - t0, execute_s=t2 - t1,
                        cells=int(out.size))
+        if work is not None:
+            profile["work"] = work[0] if isinstance(policy, str) else work
     if isinstance(policy, str):
         out, hit_counts = out[0], hit_counts[0]
     return (out, hit_counts) if return_hits else out

@@ -6,10 +6,13 @@ it runs on a machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
+import time
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import carry
 from repro_torch.core import (POLICY_WEIGHTS, PRICE_VECTORS, cost_foo,
                               miss_costs, sweep_torch, zipf_trace)
 from repro_torch.core.trace import next_use_indices
@@ -285,6 +288,76 @@ def test_sweep_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(loop.cpu().numpy(), want)
     np.testing.assert_array_equal(plain, want)
+
+
+def _sweep_case():
+    rng = np.random.default_rng(8)
+    ids = rng.integers(0, 24, 250).astype(np.int32)
+    costs = 2.0 ** rng.integers(0, 12, 24)
+    return ids, np.stack([costs, 8 * costs, costs / 4]), np.array([2, 4, 8, 12])
+
+
+def test_profile_keys_on_card(cuda):
+    """The CPU path's keys (`test_profile_keys`) and `work`: the kernel's
+    counters as int64 numpy in dollars' shape plus `WORK_COLUMNS`."""
+    ids, cm, budgets = _sweep_case()
+    columns = len(replay_scan_module.WORK_COLUMNS)
+    for policy, shape in (("lru", (3, 4)), (list(POLICY_WEIGHTS), (6, 3, 4))):
+        prof = {}
+        out = sweep_torch(policy, ids, cm, budgets, num_objects=24,
+                          profile=prof)
+        assert set(prof) == {"compile_s", "execute_s", "cells", "work"}
+        assert out.shape == shape and prof["cells"] == out.size
+        assert isinstance(prof["work"], np.ndarray)
+        assert prof["work"].dtype == np.int64
+        assert prof["work"].shape == shape + (columns,)
+
+
+def test_sweep_counters_and_spans_on_card(cuda, monkeypatch):
+    """`profile["work"]` holds the counts `replay_scan_cuda` gives on the
+    same inputs, in every call; without `profile` only dollars and hits
+    come back. Under the profiler the spans stay on the host (no copy on
+    the card's timeline) and the kernel runs after the replay span opens
+    and before the copy back ends."""
+    from torch.profiler import ProfilerActivity, profile
+    ids, cm, budgets = _sweep_case()
+    policies = list(POLICY_WEIGHTS)
+    copies, to_numpy = [], carry.to_numpy
+    monkeypatch.setattr(carry, "to_numpy",
+                        lambda x: copies.append(x.shape) or to_numpy(x))
+    sweep_torch(policies, ids, cm, budgets, num_objects=24)
+    assert copies == [(6, 3, 4)] * 2
+    profs = [{}, {}]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.01)            # the trace may drop its first events
+        for _ in range(4):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for p in profs:
+            sweep_torch(policies, ids, cm, budgets, num_objects=24, profile=p)
+    x = _replay_on_card(dict(weights=stack_policy_weights(policies), ids=ids,
+                             costs=cm, sizes=np.ones(24), budgets=budgets),
+                        cuda)
+    own = replay_scan_cuda(**x)[2].cpu().numpy()
+    for p in profs:
+        np.testing.assert_array_equal(p["work"][..., :3], own[..., :3])
+    events = prof.events()
+    assert not [e.name for e in events if e.name.startswith("repro_torch.")
+                and e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def ranges(name):
+        return sorted((e.time_range.start, e.time_range.end) for e in events
+                      if e.name == name
+                      and e.device_type == torch.autograd.DeviceType.CPU)
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "replay_scan_kernel" in e.name)
+    replay = ranges("repro_torch.sweep.replay")
+    copy_back = ranges("repro_torch.sweep.copy_back")
+    assert len(kernels) == len(replay) == len(copy_back) == 2
+    for (k0, k1), (r0, _), (_, c1) in zip(kernels, replay, copy_back):
+        assert r0 <= k0 <= k1 <= c1
 
 
 def _replay_on_card(c: dict, dev) -> dict:

@@ -129,6 +129,46 @@ def test_profile_keys():
     assert prof["execute_s"] > 0 and prof["compile_s"] >= 0
 
 
+def test_no_profiler_no_spans(monkeypatch):
+    """With no profiler running a sweep opens no profiler range at all."""
+    def refuse(*a, **k):
+        raise AssertionError("a profiler range was built")
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    rng = np.random.default_rng(4)
+    ids, costs = _rand(rng, 40, 6)
+    for profile in (None, {}):
+        pt.sweep_torch("lfu", ids, costs[None], np.array([2, 3]),
+                       num_objects=6, device="cpu", profile=profile)
+
+
+def test_spans_nest_in_phase_order():
+    """Under a profiler the CPU path's five spans nest in the call's order,
+    on the host and none of them a user annotation (which the profiler
+    would copy onto a card's timeline)."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(5)
+    ids, costs = _rand(rng, 50, 7)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        pt.sweep_torch(["lru", "belady"], ids, np.stack([costs, 2 * costs]),
+                       np.array([2, 4]), num_objects=7, device="cpu")
+    spans = sorted((e.time_range.start, e.time_range.end, e.name, e)
+                   for e in prof.events()
+                   if e.name.startswith("repro_torch."))
+    names = [n for _, _, n, _ in spans]
+    assert names == ["repro_torch.sweep", "repro_torch.sweep.prepare",
+                     "repro_torch.sweep.next_use", "repro_torch.sweep.replay",
+                     "repro_torch.sweep.copy_back"]
+    (lo, hi, _, _), children = spans[0], spans[1:]
+    for (a, b, _, _), (c, _, _, _) in zip(children, children[1:]):
+        assert a <= b <= c
+    assert lo <= children[0][0] and children[-1][1] <= hi
+    for *_, e in spans:
+        assert e.device_type == torch.autograd.DeviceType.CPU
+        assert not getattr(e, "is_user_annotation", False)
+
+
 def test_entry_points_need_a_card_unless_told(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ids = np.array([0, 1, 0], np.int32)
