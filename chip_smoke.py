@@ -431,12 +431,14 @@ def next_use_on_path(path: str, ids: torch.Tensor, n: int) -> torch.Tensor:
 
 def next_use_checks(seed: int, rng, dev, errs: dict, cases: list) -> dict:
     """next_use on the card equal to its plain version on the card and to
-    the host's next_use_indices, on inputs the radix design can get wrong:
-    every pass count (1 to 4, from the largest id), ids far below N, sorted
-    ids, the tile edges, each path at and past its limits (one wave, direct,
-    grouped), a ragged tile past 2^24, the full trace's Zipf ids, the 2^26
-    timing shape, and a big call, a small one and a big one again on one
-    stream (no state leaks between calls). Returns each case's plan."""
+    the host's next_use_indices, and its rank (`rank=True`, next(t)
+    unchanged) equal to the plain rank, on inputs the radix design can get
+    wrong: every pass count (1 to 4, from the largest id), ids far below N,
+    sorted ids, the tile edges, each path at and past its limits (one wave,
+    direct, grouped), a ragged tile past 2^24, the full trace's Zipf ids,
+    the 2^26 timing shape, and a big call, a small one and a big one again
+    on one stream (no state leaks between calls). Returns each case's
+    plan."""
     one_wave = _build.library().next_use_one_wave_items()
     tile = plan(1000, 300)["tile_items"]        # the tile below 2^20 items
     full = twemcache_like(n_objects=20000, n_requests=200_000, seed=seed)
@@ -474,6 +476,12 @@ def next_use_checks(seed: int, rng, dev, errs: dict, cases: list) -> dict:
         check(torch.equal(got, plain), f"next_use differs from plain: {label}")
         check(np.array_equal(got.cpu().numpy(), want),
               f"next_use differs from next_use_indices: {label}")
+        again, rank = next_use_cuda(ids_t, N, rank=True)
+        check(torch.equal(again, got),
+              f"next_use with the rank differs from without: {label}")
+        check(torch.equal(rank, ref.frequency_rank_ref(ids_t)),
+              f"next_use's rank differs from the plain rank: {label}")
+        del again, rank
         errs["next_use"] = max(errs["next_use"],
                                float((got - plain).abs().max()))
         p = plan(ids_t.numel(), N, one_wave)

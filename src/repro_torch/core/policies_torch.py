@@ -15,10 +15,10 @@ The reference nests `jax.vmap` three deep around one `lax.scan` per cell.
 Here the grid is flattened to a leading cell axis, C = Q*P*K with cell
 c = (q*P + p)*K + k. On the card (`use_kernel=None` -> the device is CUDA)
 `sweep_torch` replays the whole grid in one launch of the `replay_scan`
-kernel, each cell's scan on its own block, with next(t) from the
-`next_use` kernel handed over on the card. Its plain version, taken on the
-CPU or with `use_kernel=False`, is `_replay`: one Python loop over the T
-requests that advances all C cells at once. Each step does what the
+kernel, each cell's scan on its own block, with next(t) and the frequency
+rank from one `next_use` call handed over on the card. Its plain version,
+taken on the CPU or with `use_kernel=False`, is `_replay`: one Python loop
+over the T requests that advances all C cells at once. Each step does what the
 reference's `step` does, in the same order and with the same float32
 expressions written as separate ops (no fused multiply-add), so the CPU
 and the card give the reference's bits wherever the reference's own
@@ -33,9 +33,9 @@ Uniform-size pages (the exact reference's regime): one eviction per miss.
 Variable sizes stay on the host reference (`policies.py`).
 
 While a `torch.profiler` runs, `sweep_torch` opens a range for each of its
-phases (`repro_torch.sweep`, then `.prepare`, `.next_use`,
-`.frequency_rank` on the card, `.replay`, `.copy_back`), on the clock of
-the trace's kernels and copies. They are plain op ranges, not user
+phases (`repro_torch.sweep`, then `.prepare`, `.next_use`, which on the
+card writes the frequency rank too, `.replay`, `.copy_back`), on the clock
+of the trace's kernels and copies. They are plain op ranges, not user
 annotations, so the profiler copies none of them onto the device's
 timeline; with no profiler running a range is one flag check.
 """
@@ -52,7 +52,7 @@ from torch.autograd import profiler as _autograd_profiler
 
 from . import carry
 from ..kernels import _build, ops
-from ..kernels.replay_scan import frequency_rank, replay_scan_cuda
+from ..kernels.replay_scan import replay_scan_cuda
 
 __all__ = ["PolicyWeights", "POLICY_WEIGHTS", "simulate_torch", "sweep_torch",
            "stack_policy_weights", "resolve_device"]
@@ -303,9 +303,11 @@ def sweep_torch(policy, ids: np.ndarray, cost_matrix: np.ndarray,
                  shape (Q, P, K).
     cost_matrix: (P, N) per-object costs for P price vectors.
     budgets:     (K,) page budgets.
-    use_kernel:  None -> the CUDA kernels on the card (the whole grid in one
-                 `replay_scan` launch), the plain step loop on the CPU;
-                 False -> the plain versions on any device.
+    use_kernel:  None -> the CUDA kernels on the card (next(t) and the
+                 frequency rank from one `next_use` call, then the whole
+                 grid in one `replay_scan` launch, with no host step
+                 between), the plain step loop on the CPU; False -> the
+                 plain versions on any device.
     profile:     pass a dict to get `compile_s` (building and loading the
                  kernel library; ~0 once loaded), `execute_s` (next(t) plus
                  the replay, synchronised) and `cells`; on the kernel path
@@ -334,17 +336,18 @@ def sweep_torch(policy, ids: np.ndarray, cost_matrix: np.ndarray,
             weights = carry.weight_stack(stack, dev)
             budgets_t = torch.as_tensor(np.asarray(budgets, dtype=np.int32),
                                         device=dev)
-        with _span(".next_use"):
-            nxt_t = ops.next_use(ids_t, n, use_kernel=use_k)
         work = None
         if use_k:
-            with _span(".frequency_rank"):
-                rank_t = torch.as_tensor(frequency_rank(ids), device=dev)
+            with _span(".next_use"):
+                nxt_t, rank_t = ops.next_use(ids_t, n, use_kernel=True,
+                                             with_rank=True)
             with _span(".replay"):
                 dollars, hits, work = replay_scan_cuda(
                     weights, ids_t, nxt_t, rank_t, costs_t, sizes_t,
                     budgets_t)
         else:
+            with _span(".next_use"):
+                nxt_t = ops.next_use(ids_t, n, use_kernel=False)
             with _span(".replay"):
                 dollars, hits, _ = _replay(weights, ids, _host_ints(nxt_t),
                                            costs_t, sizes_t, budgets_t,

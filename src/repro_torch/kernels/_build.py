@@ -46,16 +46,16 @@ _SIGNATURES = {
     "next_use_stats_launch": ([_vp, ctypes.c_longlong, ctypes.c_int,
                                ctypes.c_int, _vp, _vp, _vp, ctypes.c_longlong,
                                _vp], ctypes.c_int),
-    # ids, out, buffers, counters, spare, status, T, n, positions, seen,
-    # stream
-    "next_use_one_wave_launch": ([_vp, _vp, _vp, _vp, _vp, _vp,
+    # ids, out, rank, buffers, counters, spare, status, T, n, positions,
+    # seen, stream
+    "next_use_one_wave_launch": ([_vp, _vp, _vp, _vp, _vp, _vp, _vp,
                                   ctypes.c_longlong, ctypes.c_int,
                                   ctypes.c_int, _vp, _vp], ctypes.c_int),
     "next_use_one_wave_items": ([], ctypes.c_longlong),
     "next_use_range_word": ([], ctypes.c_int),
-    # ids, out, buffers, counters, status, T, passes, tile_items,
+    # ids, out, rank, buffers, counters, status, T, passes, tile_items,
     # partition_shift, stream
-    "next_use_sort_launch": ([_vp, _vp, _vp, _vp, _vp, ctypes.c_longlong,
+    "next_use_sort_launch": ([_vp, _vp, _vp, _vp, _vp, _vp, ctypes.c_longlong,
                               ctypes.c_int, ctypes.c_int, ctypes.c_int, _vp],
                              ctypes.c_int),
     "next_use_counter_words": ([], ctypes.c_int),

@@ -36,6 +36,27 @@
 // pass writes no sorted pairs, and its only wait is on an earlier tile.
 // Writing next(t) is a scatter on t, the one uncoalesced stream.
 //
+// rank[t] (when the caller passes a rank array; the frequency the replay
+// reads, the count of ids[t] in ids[:t+1]) is t's place in its id's run over
+// the sorted order, plus one. The pass that forms next(t) writes it too: in
+// the tile, a pair's id run starts at the last run head at or before it (a
+// max-scan of the staged pairs' head positions: per warp row with
+// shuffles, then over warps), so every id run of a digit but the tile's
+// first gets its rank from the tile alone, j - start + 1. The first id run
+// of a digit may continue the run of the nearest earlier tile that holds
+// the digit (the one the look-back names, whose last pair the kPair word
+// already hands over): if that pair has the same id, the run adds the rank
+// that tile handed off. Each tile hands off the rank of its last pair of
+// each digit in a third table (kPrefix | rank, one word per tile and
+// digit), at once where its digit holds more than one id, else once its
+// own carry is known: a hot id whose run spans many tiles (a Zipf head
+// holds ~19 k of memcache's 200 k requests, ~9 tiles of 2048) makes a chain
+// of such waits, each on an earlier, running tile, as the look-back's are.
+// On the grouped path the successor pass writes the rank, its tiles being
+// runs of the sorted order (one segment a tile, handed to the next tile).
+// A call without a rank array passes null and skips all of it: the same
+// launches, bytes and waits as without the rank.
+//
 // Three paths, by T (the wrapper's plan):
 //   one wave, while every tile of 2048 requests has a block on the card at
 //     once: first_pass, one cooperative launch, reads each tile's ids once
@@ -58,15 +79,17 @@
 // warp intrinsics, shared memory and one cooperative-groups grid barrier.
 //
 // What bounds it on an H100: bytes. The function needs 8*T (each id read
-// once, each result written once). Per request the paths move: the ids read
-// once for the statistics (4 bytes), 8 written by the first pass, 16 by each
-// middle pass, and 8 read plus a 4-byte scatter by the last; the grouped
-// path's last id pass writes sorted pairs (8) and its successor pass and
-// write add 16 and 12. In all, 16P - 8 bytes one wave (24 at P = 2), 16P - 4
-// direct, 16P + 28 grouped (76 at P = 3, T = 2^26), plus 4096 / tile bytes
-// of look-back state. At T = 200,000 the latency of each pass's chain
-// (load, rank, look-back, scatter) and the launches, not the bytes, set the
-// time.
+// once, each result written once), 12*T with the rank. Per request the
+// paths move: the ids read once for the statistics (4 bytes), 8 written by
+// the first pass, 16 by each middle pass, and 8 read plus a 4-byte scatter
+// by the last; the grouped path's last id pass writes sorted pairs (8) and
+// its successor pass and write add 16 and 12. In all, 16P - 8 bytes one
+// wave (24 at P = 2), 16P - 4 direct, 16P + 28 grouped (76 at P = 3, T =
+// 2^26), plus 4096 / tile bytes of look-back state. The rank adds a 4-byte
+// scatter on t (in the last id pass, or the grouped path's successor pass)
+// and 2048 / tile bytes of hand-offs: 28 bytes one wave at P = 2. At T =
+// 200,000 the latency of each pass's chain (load, rank, look-back, scatter)
+// and the launches, not the bytes, set the time.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -285,7 +308,102 @@ struct PassSmem {
   unsigned scan_tmp[kBlock / 32];
   unsigned tile_slot;
   int after[2];                 // kSuccessors: the pair after the tile
+  // the rank (only when asked for): per run of the hand-off, the length of
+  // its first id's run in the tile and the count that id had before the tile
+  unsigned first_len[kRadix];
+  unsigned carry[kRadix];
+  unsigned rank_tmp[kBlock / 32];
 };
+
+// rank[t] = the count of ids[t] in ids[:t+1]: the place of pair t in its
+// id's run over the whole sorted order, plus one. A tile's staged pairs lie
+// in sorted order within each of its "segments" (kIds: the run of a digit,
+// pairs [tile_first[d], run_end[d]); kSuccessors: the whole tile), and a
+// segment continues the same segment of the nearest earlier tile that holds
+// it. `seg(key, s, f, e)` names the segment of a staged key and its pairs
+// [f, e). Every id's run in a segment but the first gets its rank from the
+// tile alone: j - start + 1, start the last run head at or before j (a
+// max-scan of head positions, per warp row with a carry, then over warps).
+// The first id's run may continue from the earlier tile, so this phase only
+// notes its length; the segment's last rank goes to `row[s]` (kPrefix |
+// rank, a hand-off read by the next tile holding the segment) here unless
+// the first run is the whole segment. Ends with a barrier.
+template <int kBlock, int kItems, typename Seg>
+__device__ __forceinline__ void rank_in_tile(PassSmem<kBlock, kItems>& sm,
+                                             unsigned n_tile, Seg seg,
+                                             int* __restrict__ rank,
+                                             unsigned long long* row) {
+  constexpr int kWarpTile = 32 * kItems;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned wbase = warp * kWarpTile;
+  auto head_at = [&](unsigned j) {
+    return j < n_tile && (j == 0 || sm.stage_key[j] != sm.stage_key[j - 1]);
+  };
+  unsigned top = 0;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const unsigned j = wbase + i * 32 + lane;
+    if (head_at(j)) top = j;
+  }
+  top = __reduce_max_sync(kFull, top);
+  if (lane == 0) sm.rank_tmp[warp] = top;
+  __syncthreads();
+  unsigned start = 0;  // the last head before this warp's pairs
+  for (int w = 0; w < warp; ++w) start = max(start, sm.rank_tmp[w]);
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const unsigned j = wbase + i * 32 + lane;
+    unsigned x = head_at(j) ? j : 0u;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(kFull, x, o);
+      if (lane >= o) x = max(x, y);
+    }
+    x = max(x, start);
+    start = __shfl_sync(kFull, x, 31);
+    if (j < n_tile) {
+      const int k = sm.stage_key[j];
+      unsigned s, f, e;
+      seg(k, s, f, e);
+      if (x != f) {
+        rank[sm.stage_val[j]] = (int)(j - x + 1);
+        if (j + 1 == e) store_status(row + s, kPrefix | (j - x + 1));
+      } else if (j + 1 == e || sm.stage_key[j + 1] != k) {
+        sm.first_len[s] = j - f + 1;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// After rank_in_tile and a barrier that follows the owners' carry into
+// sm.carry: the ranks of each segment's first id's run, carry included.
+template <int kBlock, int kItems, typename Seg>
+__device__ __forceinline__ void rank_first_runs(PassSmem<kBlock, kItems>& sm,
+                                                unsigned n_tile, Seg seg,
+                                                int* __restrict__ rank) {
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const unsigned j = i * kBlock + threadIdx.x;
+    if (j < n_tile) {
+      unsigned s, f, e;
+      seg(sm.stage_key[j], s, f, e);
+      if (j - f < sm.first_len[s])
+        rank[sm.stage_val[j]] = (int)(j - f + 1 + sm.carry[s]);
+    }
+  }
+}
+
+// The count a segment's first id had before this tile: the rank the nearest
+// earlier tile holding the segment handed off, once it is there.
+__device__ __forceinline__ unsigned rank_handed_off(
+    const unsigned long long* word) {
+  unsigned long long v;
+  do {
+    v = load_status(word);
+  } while (!(v & kPrefix));
+  return (unsigned)v;
+}
 
 // One stable pass of 8-bit digits at `shift` over a tile whose keys (and,
 // for kSuccessors, values) are in registers; warp_count is zero. Thread d <
@@ -299,7 +417,9 @@ struct PassSmem {
 //     keys_out (the output) for each pair whose successor is in the tile;
 //     the tile's last pair of each digit goes to `other`, where the next
 //     tile holding the digit (known from the look-back) reads it and writes
-//     its next(t); the last pair of a digit over all tiles gets T.
+//     its next(t); the last pair of a digit over all tiles gets T. With
+//     `rank` (else nullptr), rank[t] too, each digit's run a segment of
+//     rank_in_tile whose hand-off is rank_tab's row of the tile.
 //   kSuccessors: (t, next(t)) pairs by t's top 8 bits (shift: bit_length of
 //     T - 1, less 8, at least 0; digit d starts at d << shift). The tile
 //     counts are published before the ranking (counted with shared atomics),
@@ -311,7 +431,8 @@ __device__ __forceinline__ void pass_tail(
     const int* __restrict__ vals_in, int* __restrict__ keys_out,
     int* __restrict__ vals_out, unsigned* __restrict__ counters, bool last,
     unsigned long long* status, unsigned long long* other, long long T,
-    int shift, long long tile, unsigned digit_total) {
+    int shift, long long tile, unsigned digit_total, int* __restrict__ rank,
+    unsigned long long* rank_tab) {
   constexpr int kTile = kBlock * kItems;
   constexpr int kWarpTile = 32 * kItems;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -443,22 +564,40 @@ __device__ __forceinline__ void pass_tail(
                      (unsigned long long)((unsigned)sm.stage_key[end] &
                                           0x7fffffffu) << 31 |
                      ((unsigned)sm.stage_val[end] & 0x7fffffffu));
+  auto digit_run = [&](int k, unsigned& s, unsigned& f, unsigned& e) {
+    s = ((unsigned)k >> shift) & (kRadix - 1);
+    f = sm.tile_first[s];
+    e = sm.run_end[s];
+  };
+  unsigned long long* rank_row = rank ? rank_tab + tile * kRadix : nullptr;
+  if (rank)
+    rank_in_tile<kBlock, kItems>(sm, n_tile, digit_run, rank, rank_row);
   resolve();
   if (owner && count) {
     // the run's last pair gets T if no later request has this digit; the
     // run's first pair is the successor of the nearest earlier tile's last
     if (back.prefix + count == digit_total) out[sm.stage_val[end]] = (int)T;
+    unsigned carry = 0;
     if (back.nearest >= 0) {
       unsigned long long v;
       do {
         v = load_status(other + back.nearest * kRadix + tid);
       } while ((v & kPair) != kPair);
-      out[v & 0x7fffffffu] =
-          (int)((v >> 31) & 0x7fffffffu) ==
-                  ((unsigned)sm.stage_key[first] & 0x7fffffffu)
-              ? sm.stage_val[first]
-              : (int)T;
+      const bool same = (int)((v >> 31) & 0x7fffffffu) ==
+                        ((unsigned)sm.stage_key[first] & 0x7fffffffu);
+      out[v & 0x7fffffffu] = same ? sm.stage_val[first] : (int)T;
+      if (rank && same)
+        carry = rank_handed_off(rank_tab + back.nearest * kRadix + tid);
     }
+    if (rank) {
+      sm.carry[tid] = carry;
+      if (sm.first_len[tid] == count)
+        store_status(rank_row + tid, kPrefix | (count + carry));
+    }
+  }
+  if (rank) {
+    __syncthreads();
+    rank_first_runs<kBlock, kItems>(sm, n_tile, digit_run, rank);
   }
 }
 
@@ -471,7 +610,12 @@ __device__ __forceinline__ void pass_tail(
 //     writes next(t) into `out` instead, unless `grouped` (then a
 //     kSuccessors pass follows).
 //   kSuccessors: reads pairs sorted by id, forms (t, next(t)) from each pair
-//     and the next, and groups them by t's top 8 bits.
+//     and the next, and groups them by t's top 8 bits. With `rank`, writes
+//     rank[t] first, the tile one segment of rank_in_tile and its hand-off
+//     rank_tab's row of the tile.
+// rank, rank_tab: nullptr unless the call writes the rank; then rank_tab is
+// a zeroed table of the tiles' rank hand-offs, read by the pass that forms
+// next(t).
 template <int kBlock, int kItems, int kMode>
 __global__ void __launch_bounds__(kBlock, min_blocks(kBlock))
 radix_pass(const int* __restrict__ keys_in, const int* __restrict__ vals_in,
@@ -479,7 +623,8 @@ radix_pass(const int* __restrict__ keys_in, const int* __restrict__ vals_in,
            int* __restrict__ out, unsigned* __restrict__ counters, int pass,
            int passes, int grouped,
            unsigned long long* status, unsigned long long* other,
-           long long T, int shift) {
+           long long T, int shift, int* __restrict__ rank,
+           unsigned long long* rank_tab) {
   constexpr int kTile = kBlock * kItems;
   constexpr int kWarpTile = 32 * kItems;
   __shared__ PassSmem<kBlock, kItems> sm;
@@ -528,6 +673,28 @@ radix_pass(const int* __restrict__ keys_in, const int* __restrict__ vals_in,
       sm.after[1] = vals_in ? vals_in[base + kTile] : (int)(base + kTile);
     }
     __syncthreads();
+    if (rank) {
+      // the pairs are in the global sorted order: the tile is one segment,
+      // continuing tile - 1's if the pair before the tile has the same id
+      auto whole = [&](int, unsigned& s, unsigned& f, unsigned& e) {
+        s = 0;
+        f = 0;
+        e = (unsigned)n_tile;
+      };
+      unsigned long long* row = rank_tab + tile * kRadix;
+      rank_in_tile<kBlock, kItems>(sm, (unsigned)n_tile, whole, rank, row);
+      if (tid == 0) {
+        const unsigned carry =
+            tile > 0 && keys_in[base - 1] == sm.stage_key[0]
+                ? rank_handed_off(row - kRadix)
+                : 0u;
+        sm.carry[0] = carry;
+        if (sm.first_len[0] == (unsigned)n_tile)
+          store_status(row, kPrefix | (n_tile + carry));
+      }
+      __syncthreads();
+      rank_first_runs<kBlock, kItems>(sm, (unsigned)n_tile, whole, rank);
+    }
 #pragma unroll
     for (int i = 0; i < kItems; ++i) {
       const int j = warp * kWarpTile + i * 32 + lane;
@@ -545,15 +712,17 @@ radix_pass(const int* __restrict__ keys_in, const int* __restrict__ vals_in,
   pass_tail<kBlock, kItems, kMode>(sm, key, val, vals_in,
                                    last ? out : keys_out,
                                    vals_out, counters, last, status, other,
-                                   T, shift, tile, digit_total);
+                                   T, shift, tile, digit_total, rank,
+                                   rank_tab);
 }
 
 // The first pass when every tile has a block on the card at once (a
 // cooperative launch guarantees it), with the stats kernel's work folded
 // in: each block reads its tile's ids once, histograms them (all `positions`
 // digit positions), finds the ids outside [0, n) and the largest, and
-// zeroes its rows of both look-back tables (block 0 also the spare counter
-// set); after one grid barrier block 0
+// zeroes its rows of both look-back tables (and, with `rank`, of the rank
+// hand-off table after them; block 0 also the spare counter set); after one
+// grid barrier block 0
 // hands the range count and the largest id to the host (`seen`, pinned
 // memory written over the bus while the pass goes on) and leaves the pass
 // count the data needs in the counters for the later passes; then the
@@ -563,7 +732,8 @@ __global__ void __launch_bounds__(kBlock, min_blocks(kBlock))
 first_pass(const int* __restrict__ ids, int* __restrict__ keys_out,
            int* __restrict__ out, unsigned* __restrict__ counters,
            unsigned* __restrict__ spare, unsigned long long* status,
-           long long T, int n, int positions, int* seen) {
+           long long T, int n, int positions, int* seen,
+           int* __restrict__ rank) {
   constexpr int kTile = kBlock * kItems;
   constexpr int kWarpTile = 32 * kItems;
   __shared__ PassSmem<kBlock, kItems> sm;
@@ -582,6 +752,7 @@ first_pass(const int* __restrict__ ids, int* __restrict__ keys_out,
     sm.tile_first[tid] = 0;
     status[tile * kRadix + tid] = 0;
     status[words + tile * kRadix + tid] = 0;
+    if (rank) status[2 * words + tile * kRadix + tid] = 0;
   }
   __syncthreads();
 
@@ -628,7 +799,7 @@ first_pass(const int* __restrict__ ids, int* __restrict__ keys_out,
   pass_tail<kBlock, kItems, kIds>(
       sm, key, val, nullptr, passes == 1 ? out : keys_out, keys_out + T,
       counters, passes == 1, status, status + words, T, 0, tile,
-      owner ? __ldcg(&counters[tid]) : 0u);
+      owner ? __ldcg(&counters[tid]) : 0u, rank, status + 2 * words);
 }
 
 // (t, next(t)) pairs grouped by t's top 8 bits, written in order of blocks.
@@ -653,14 +824,18 @@ int sm_count() {
 
 // Passes `from` to `passes` - 1 (passes == 0: as many as the first pass
 // left in the counters, launching `positions` and letting the extra ones
-// exit), then, if grouped, the successor pass and the write.
+// exit), then, if grouped, the successor pass and the write. With `rank`
+// (else nullptr), the pass that forms next(t) writes rank[t] too, its
+// hand-offs in the third table of `status`.
 template <int kBlock, int kItems>
-int run_passes(const int* ids, int* out, int* buffers, unsigned* counters,
-               unsigned long long* status, long long T, int from, int passes,
-               int positions, int partition_shift, cudaStream_t stream) {
+int run_passes(const int* ids, int* out, int* rank, int* buffers,
+               unsigned* counters, unsigned long long* status, long long T,
+               int from, int passes, int positions, int partition_shift,
+               cudaStream_t stream) {
   constexpr long long kTile = kBlock * kItems;
   const unsigned tiles = (unsigned)((T + kTile - 1) / kTile);
   const long long words = (long long)tiles * kRadix;
+  unsigned long long* rank_tab = rank ? status + 2 * words : nullptr;
   const bool grouped = partition_shift >= 0;
   const int launched = passes ? passes : positions;
   for (int p = from; p < launched; ++p) {
@@ -669,7 +844,7 @@ int run_passes(const int* ids, int* out, int* buffers, unsigned* counters,
     radix_pass<kBlock, kItems, kIds><<<tiles, kBlock, 0, stream>>>(
         keys_in, p ? keys_in + T : nullptr, keys_out, keys_out + T, out,
         counters, p, passes, grouped ? 1 : 0, status + (p % 2) * words,
-        status + ((p + 1) % 2) * words, T, kRadixBits * p);
+        status + ((p + 1) % 2) * words, T, kRadixBits * p, rank, rank_tab);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -678,7 +853,8 @@ int run_passes(const int* ids, int* out, int* buffers, unsigned* counters,
   int* ts = buffers + (long long)(passes % 2) * 2 * T;
   radix_pass<kBlock, kItems, kSuccessors><<<tiles, kBlock, 0, stream>>>(
       keys_in, keys_in + T, ts, ts + T, nullptr, counters, passes, passes, 1,
-      status + (passes % 2) * words, nullptr, T, partition_shift);
+      status + (passes % 2) * words, nullptr, T, partition_shift, rank,
+      rank_tab);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   write_kernel<<<(unsigned)((T + kThreads - 1) / kThreads), kThreads, 0,
@@ -716,18 +892,21 @@ extern "C" int next_use_range_word() { return kBad; }
 // cooperative launch: the ids' histograms, range and largest id, then the
 // first radix pass), then radix passes 1 to positions - 1, each of which
 // exits if the data needs fewer; the last the data needs writes next(t)
-// into out (T,) int32. counters, spare: this call's zeroed counter set and
-// the other one. seen: 2 int32 of pinned host memory that get the
-// count of ids outside [0, n) and the largest id (valid once the stream has
-// passed first_pass). buffers: 4*T int32 (none when positions == 1);
-// status: two look-back tables of ceil(T / 2048) * 256 uint64 words (no
-// zeroing needed). positions: the digit passes ids below n can need (1 to
-// 4). Returns the first CUDA error of the launches, 0 on success.
+// into out (T,) int32, and rank[t] into rank (T,) int32 unless rank is
+// null. counters, spare: this call's zeroed counter set and the other one.
+// seen: 2 int32 of pinned host memory that get the count of ids outside
+// [0, n) and the largest id (valid once the stream has passed first_pass).
+// buffers: 4*T int32 (none when positions == 1); status: two look-back
+// tables of ceil(T / 2048) * 256 uint64 words, a third (the rank's
+// hand-offs) with rank (no zeroing needed). positions: the digit passes ids
+// below n can need (1 to 4). Returns the first CUDA error of the launches,
+// 0 on success.
 extern "C" int next_use_one_wave_launch(const void* ids, void* out,
-                                        void* buffers, void* counters,
-                                        void* spare, void* status,
-                                        long long T, int n, int positions,
-                                        void* seen, void* stream) {
+                                        void* rank, void* buffers,
+                                        void* counters, void* spare,
+                                        void* status, long long T, int n,
+                                        int positions, void* seen,
+                                        void* stream) {
   if (positions < 1 || positions > kMaxPositions)
     return (int)cudaErrorInvalidValue;
   const int* ids_p = static_cast<const int*>(ids);
@@ -737,15 +916,18 @@ extern "C" int next_use_one_wave_launch(const void* ids, void* out,
   unsigned* spare_p = static_cast<unsigned*>(spare);
   unsigned long long* status_p = static_cast<unsigned long long*>(status);
   int* seen_p = static_cast<int*>(seen);
+  int* rank_p = static_cast<int*>(rank);
   void* args[] = {&ids_p, &buffers_p, &out_p,     &counters_p, &spare_p,
-                  &status_p, &T,      &n,         &positions,  &seen_p};
+                  &status_p, &T,      &n,         &positions,  &seen_p,
+                  &rank_p};
   const long long tiles = (T + 2047) / 2048;
   cudaError_t err = cudaLaunchCooperativeKernel(
       (void*)first_pass<512, 4>, dim3((unsigned)tiles), dim3(512), args, 0,
       (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  return run_passes<512, 4>(ids_p, out_p, buffers_p, counters_p, status_p, T,
-                            1, 0, positions, -1, (cudaStream_t)stream);
+  return run_passes<512, 4>(ids_p, out_p, rank_p, buffers_p, counters_p,
+                            status_p, T, 1, 0, positions, -1,
+                            (cudaStream_t)stream);
 }
 
 // ids: (T,) int32, T >= 1. Histograms the ids' low `positions` bytes into
@@ -773,27 +955,31 @@ extern "C" int next_use_stats_launch(const void* ids, long long T, int n,
 // (>= 1) radix passes in tiles of `tile_items` requests (2048 or 4096), the
 // last of which writes next(t) into out (T,) int32 when partition_shift < 0;
 // else a successor pass groups the (t, next(t)) pairs by t >> partition_shift
-// (t's top 8 bits) and write_kernel writes them. buffers: 4*T int32 (none
-// for one direct pass); status: two look-back tables of ceil(T /
-// tile_items) * 256 uint64 words, both zeroed by the stats launch.
-// Returns the first CUDA error of the launches, 0 on success.
-extern "C" int next_use_sort_launch(const void* ids, void* out, void* buffers,
-                                    void* counters, void* status, long long T,
-                                    int passes, int tile_items,
-                                    int partition_shift, void* stream) {
+// (t's top 8 bits) and write_kernel writes them. Unless rank is null, the
+// pass that forms next(t) also writes rank[t] into rank (T,) int32.
+// buffers: 4*T int32 (none for one direct pass); status: two look-back
+// tables of ceil(T / tile_items) * 256 uint64 words, a third with rank, all
+// zeroed by the stats launch. Returns the first CUDA error of the launches,
+// 0 on success.
+extern "C" int next_use_sort_launch(const void* ids, void* out, void* rank,
+                                    void* buffers, void* counters,
+                                    void* status, long long T, int passes,
+                                    int tile_items, int partition_shift,
+                                    void* stream) {
   if (passes < 1 || passes > kMaxPositions || partition_shift > 31)
     return (int)cudaErrorInvalidValue;
   const int* in = static_cast<const int*>(ids);
   int* o = static_cast<int*>(out);
+  int* r = static_cast<int*>(rank);
   int* b = static_cast<int*>(buffers);
   unsigned* c = static_cast<unsigned*>(counters);
   unsigned long long* s = static_cast<unsigned long long*>(status);
   cudaStream_t st = (cudaStream_t)stream;
   if (tile_items == 2048)
-    return run_passes<512, 4>(in, o, b, c, s, T, 0, passes, passes,
+    return run_passes<512, 4>(in, o, r, b, c, s, T, 0, passes, passes,
                               partition_shift, st);
   if (tile_items == 4096)
-    return run_passes<256, 16>(in, o, b, c, s, T, 0, passes, passes,
+    return run_passes<256, 16>(in, o, r, b, c, s, T, 0, passes, passes,
                                partition_shift, st);
   return (int)cudaErrorInvalidValue;
 }

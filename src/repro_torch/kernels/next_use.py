@@ -2,8 +2,10 @@
 
 The port of `src/repro/kernels/next_use.py:next_use_pallas`: a stable LSD
 radix sort of the positions by id whose last pass writes next(t), the
-successor inside each run of equal ids. The plain PyTorch version is
-`ref.next_use_ref`; `ops.next_use` picks between the two.
+successor inside each run of equal ids, and, when asked, the frequency
+rank[t] beside it (t's place in its id's run, plus one). The plain PyTorch
+versions are `ref.next_use_ref` and `ref.frequency_rank_ref`; `ops.next_use`
+picks between the kernel and them.
 """
 from __future__ import annotations
 
@@ -82,15 +84,15 @@ def _counter_sets(lib, dev: torch.device, stream: int):
     return sets, sets[use], sets[1 - use]
 
 
-def _sorted_by_passes(lib, ids, out, buffers, counters, spare, status, p,
-                      num_objects, stream) -> int:
+def _sorted_by_passes(lib, ids, out, rank, buffers, counters, spare, status,
+                      p, num_objects, stream) -> int:
     """The direct and grouped paths: the stats kernel, one read-back of the
     range and the largest id, then the radix passes. Returns the CUDA error
     of the launches."""
     T = ids.shape[0]
     err = lib.next_use_stats_launch(
         ids.data_ptr(), T, num_objects, p["positions"], counters.data_ptr(),
-        spare.data_ptr(), status.data_ptr(), p["status_words"],
+        spare.data_ptr(), status.data_ptr(), status.numel(),
         stream.cuda_stream)
     if err:
         return err
@@ -99,17 +101,25 @@ def _sorted_by_passes(lib, ids, out, buffers, counters, spare, status, p,
     if outside:
         raise ValueError(f"next_use_cuda: ids outside [0, {num_objects})")
     return lib.next_use_sort_launch(
-        ids.data_ptr(), out.data_ptr(), buffers.data_ptr(),
+        ids.data_ptr(), out.data_ptr(), _ptr(rank), buffers.data_ptr(),
         counters.data_ptr(), status.data_ptr(), T, digit_passes(max_id),
         p["tile_items"], p["partition_shift"], stream.cuda_stream)
 
 
-def next_use_cuda(ids: torch.Tensor, num_objects: int) -> torch.Tensor:
+def _ptr(x: torch.Tensor | None) -> int | None:
+    return None if x is None else x.data_ptr()
+
+
+def next_use_cuda(ids: torch.Tensor, num_objects: int, rank: bool = False):
     """next(t) per request (T where the object never recurs), on the card.
 
     ids: (T,) contiguous int32 CUDA tensor with values in [0, num_objects).
     Returns (T,) int32, launched on the current stream; the path is
-    `plan`'s. Each path synchronises once, to check the range: an id
+    `plan`'s. With `rank`, returns (next, rank): rank[t], the count of
+    ids[t] in ids[:t+1] (int32), written by the same pass as next(t), with
+    a third look-back table for its hand-offs between tiles; without, the
+    kernels get a null rank and launch and write as they would with no
+    rank at all. Each path synchronises once, to check the range: an id
     outside [0, num_objects) raises ValueError (for the one-wave path after
     its kernels ran on the ids), a refused launch RuntimeError.
     """
@@ -123,8 +133,9 @@ def next_use_cuda(ids: torch.Tensor, num_objects: int) -> torch.Tensor:
         raise ValueError(f"next_use_cuda: unsupported T={T}, "
                          f"num_objects={num_objects}")
     out = torch.empty(T, dtype=torch.int32, device=ids.device)
+    ranks = torch.empty_like(out) if rank else None
     if T == 0:
-        return out
+        return (out, ranks) if rank else out
     lib = _build.library()
     dev = ids.device
     with torch.cuda.device(dev):
@@ -132,29 +143,33 @@ def next_use_cuda(ids: torch.Tensor, num_objects: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(dev)
         sets, counters, spare = _counter_sets(lib, dev, stream.cuda_stream)
         buffers = torch.empty(p["buffers"], dtype=torch.int32, device=dev)
-        status = torch.empty(p["status_words"], dtype=torch.int64,
-                             device=dev)
+        tables = p["status_words"] + (p["tiles"] * RADIX if rank else 0)
+        status = torch.empty(tables, dtype=torch.int64, device=dev)
         if p["path"] == "one_wave":
             seen = torch.empty(2, dtype=torch.int32, pin_memory=True)
             err = lib.next_use_one_wave_launch(
-                ids.data_ptr(), out.data_ptr(), buffers.data_ptr(),
-                counters.data_ptr(), spare.data_ptr(), status.data_ptr(), T,
-                num_objects, p["positions"], seen.data_ptr(),
-                stream.cuda_stream)
+                ids.data_ptr(), out.data_ptr(), _ptr(ranks),
+                buffers.data_ptr(), counters.data_ptr(), spare.data_ptr(),
+                status.data_ptr(), T, num_objects, p["positions"],
+                seen.data_ptr(), stream.cuda_stream)
             if err == 0:
                 stream.synchronize()
                 if seen[0]:
                     raise ValueError(f"next_use_cuda: ids outside "
                                      f"[0, {num_objects})")
         else:
-            err = _sorted_by_passes(lib, ids, out, buffers, counters, spare,
-                                    status, p, num_objects, stream)
+            err = _sorted_by_passes(lib, ids, out, ranks, buffers, counters,
+                                    spare, status, p, num_objects, stream)
         if err != 0:
             sets.zero_()
             raise RuntimeError(f"next_use kernel launch failed: CUDA error "
                                f"{err}")
     next_use_cuda.launches += 1
+    if rank:
+        next_use_cuda.rank_launches += 1
+        return out, ranks
     return out
 
 
 next_use_cuda.launches = 0
+next_use_cuda.rank_launches = 0     # the calls that wrote the rank

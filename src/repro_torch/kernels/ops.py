@@ -47,11 +47,13 @@ def evict_argmin(scores: torch.Tensor, touch: torch.Tensor,
 
 
 def next_use(ids: torch.Tensor, num_objects: int, *,
-             use_kernel: bool | None = None) -> torch.Tensor:
-    """next(t) per request (T where the object never recurs), int32."""
+             use_kernel: bool | None = None, with_rank: bool = False):
+    """next(t) per request (T where the object never recurs), int32; with
+    `with_rank`, (next, rank), rank[t] the count of ids[t] in ids[:t+1]."""
     if _use_kernel(ids, use_kernel):
-        return next_use_cuda(ids, num_objects)
-    return ref.next_use_ref(ids, num_objects)
+        return next_use_cuda(ids, num_objects, rank=with_rank)
+    nxt = ref.next_use_ref(ids, num_objects)
+    return (nxt, ref.frequency_rank_ref(ids)) if with_rank else nxt
 
 
 def interval_occupancy(deltas: torch.Tensor, *,
@@ -81,3 +83,4 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    next_use_cuda.rank_launches = 0

@@ -8,8 +8,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["evict_argmin_ref", "next_use_ref", "interval_occupancy_ref",
-           "occupancy_feasible_ref", "BIG", "INT_BIG"]
+__all__ = ["evict_argmin_ref", "next_use_ref", "frequency_rank_ref",
+           "interval_occupancy_ref", "occupancy_feasible_ref", "BIG",
+           "INT_BIG"]
 
 BIG = 3.4e38          # score of an entry outside the mask (float32)
 INT_BIG = 2**31 - 1   # touch of an entry outside the tie set
@@ -52,6 +53,22 @@ def next_use_ref(ids: torch.Tensor, num_objects: int | None = None
     nxt = torch.empty(T, dtype=torch.int64, device=ids.device)
     nxt[order] = succ
     return nxt.to(torch.int32)
+
+
+def frequency_rank_ref(ids: torch.Tensor) -> torch.Tensor:
+    """rank[t] = the count of ids[t] in ids[:t+1] (int32): the frequency
+    the replay reads at step t. In the stable sort by id, t's place in its
+    id's run, plus one."""
+    T = ids.shape[0]
+    order = torch.sort(ids, stable=True).indices
+    sorted_ids = ids[order]
+    pos = torch.arange(T, device=ids.device)
+    head = torch.ones(T, dtype=torch.bool, device=ids.device)
+    head[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    start = torch.cummax(torch.where(head, pos, 0), 0).values
+    rank = torch.empty(T, dtype=torch.int64, device=ids.device)
+    rank[order] = pos - start + 1
+    return rank.to(torch.int32)
 
 
 def interval_occupancy_ref(deltas: torch.Tensor) -> torch.Tensor:

@@ -158,10 +158,17 @@ def test_evict_argmin_kernel_scores_at_or_above_big(cuda):
 
 def _next_use_ids(rng, T, N, kind):
     """(T,) ids below N: uniform with the largest id N - 1 present, sorted
-    either way, or all below 1000 (N far above the largest id)."""
+    either way, all below 1000 (N far above the largest id), with one id
+    in half the requests (its run spans every tile of the last pass), or
+    Zipf(1.0) ranks (a few hot ids spanning many tiles, a long tail)."""
     if kind == "below1000":
         return rng.integers(0, 1000, T).astype(np.int32)
+    if kind == "zipf":
+        p = 1.0 / np.arange(1, N + 1)
+        return rng.choice(N, T, p=p / p.sum()).astype(np.int32)
     ids = rng.integers(0, N, T)
+    if kind == "hot":
+        ids[rng.random(T) < 0.5] = rng.integers(0, N)
     ids[rng.integers(0, T)] = N - 1
     if kind == "ascending":
         ids = np.sort(ids)
@@ -181,7 +188,13 @@ def _next_use_ids(rng, T, N, kind):
                  (2047, 300), (2048, 300), (2049, 300)]
 ] + [pytest.param(100_000, 5000, "ascending", id="ascending"),
      pytest.param(100_000, 5000, "descending", id="descending"),
-     pytest.param(200_000, 2**30, "below1000", id="N-far-above-ids")])
+     pytest.param(200_000, 2**30, "below1000", id="N-far-above-ids"),
+     # the benchmark's shapes, skewed: hot ids' runs span many tiles
+     pytest.param(200_000, 20_000, "zipf", id="zipf-20000"),
+     pytest.param(200_000, 60_000, "zipf", id="zipf-60000"),
+     pytest.param(200_000, 20_000, "hot", id="hot-half"),
+     pytest.param(100_000, 200, "hot", id="hot-half-one-digit"),
+     pytest.param(5000, 1, "uniform", id="one-id")])
 def test_next_use_kernel_matches_plain(cuda, T, N, kind):
     rng = np.random.default_rng(T + N)
     ids = _next_use_ids(rng, T, N, kind)
@@ -189,23 +202,38 @@ def test_next_use_kernel_matches_plain(cuda, T, N, kind):
     got = next_use_cuda(ids_t, N)
     assert torch.equal(got, ref.next_use_ref(ids_t, N))
     np.testing.assert_array_equal(got.cpu().numpy(), next_use_indices(ids, N))
+    _assert_rank_beside(ids_t, N, got)
 
 
-def test_next_use_kernel_three_passes(cuda):
+def _assert_rank_beside(ids_t, N, nxt):
+    """next_use_cuda with the rank: next(t) unchanged, rank[t] equal to
+    `frequency_rank` bit for bit."""
+    got, rank = next_use_cuda(ids_t, N, rank=True)
+    assert torch.equal(got, nxt)
+    assert rank.dtype == torch.int32 and rank.shape == nxt.shape
+    np.testing.assert_array_equal(rank.cpu().numpy(),
+                                  frequency_rank(ids_t.cpu().numpy()))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "hot"])
+def test_next_use_kernel_three_passes(cuda, kind):
     N = 2**17 + 5                     # ids past 2^16: three digit passes
     rng = np.random.default_rng(3)
-    ids = _next_use_ids(rng, 300_001, N, "uniform")
-    got = next_use_cuda(torch.tensor(ids, device=cuda), N)
+    ids = _next_use_ids(rng, 300_001, N, kind)
+    ids_t = torch.tensor(ids, device=cuda)
+    got = next_use_cuda(ids_t, N)
     np.testing.assert_array_equal(got.cpu().numpy(), next_use_indices(ids, N))
+    _assert_rank_beside(ids_t, N, got)
 
 
 def _one_wave_items():
     return int(_build.library().next_use_one_wave_items())
 
 
+@pytest.mark.parametrize("kind", ["uniform", "hot"])
 @pytest.mark.parametrize("where", ["one-wave limit", "direct", "direct limit",
                                    "grouped", "grouped, ragged large tile"])
-def test_next_use_kernel_paths(cuda, where):
+def test_next_use_kernel_paths(cuda, where, kind):
     limit = _one_wave_items()
     T, path = {"one-wave limit": (limit, "one_wave"),
                "direct": (limit + 1, "direct"),
@@ -215,9 +243,11 @@ def test_next_use_kernel_paths(cuda, where):
     N = 2**20
     assert plan(T, N, limit)["path"] == path
     rng = np.random.default_rng(T)
-    ids = _next_use_ids(rng, T, N, "uniform")
-    got = next_use_cuda(torch.tensor(ids, device=cuda), N)
+    ids = _next_use_ids(rng, T, N, kind)
+    ids_t = torch.tensor(ids, device=cuda)
+    got = next_use_cuda(ids_t, N)
     np.testing.assert_array_equal(got.cpu().numpy(), next_use_indices(ids, N))
+    _assert_rank_beside(ids_t, N, got)
 
 
 def test_next_use_kernel_calls_leave_no_state(cuda):
@@ -246,6 +276,20 @@ def test_next_use_kernel_calls_leave_no_state(cuda):
     torch.cuda.synchronize()
     assert torch.equal(a, first) and torch.equal(b, c)
     assert torch.equal(b, ref.next_use_ref(small, 7))
+    # calls with and without the rank, alternating, on every path
+    one_wave = torch.randint(0, 2**15, (200_000,), generator=gen,
+                             device=cuda, dtype=torch.int32)
+    direct = torch.randint(0, 2**20, (_one_wave_items() + 1,), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    for ids, n in ((big, 2**20), (one_wave, 2**15), (direct, 2**20),
+                   (small, 7)):
+        plain_rank = ref.frequency_rank_ref(ids)
+        plain_next = ref.next_use_ref(ids, n)
+        for _ in range(2):
+            nxt, rank = next_use_cuda(ids, n, rank=True)
+            assert torch.equal(nxt, plain_next)
+            assert torch.equal(rank, plain_rank)
+            assert torch.equal(next_use_cuda(ids, n), plain_next)
 
 
 def test_kernel_wrappers_reject_bad_inputs(cuda):
@@ -288,6 +332,29 @@ def test_sweep_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(loop.cpu().numpy(), want)
     np.testing.assert_array_equal(plain, want)
+
+
+def test_sweep_ranks_on_the_card(cuda, monkeypatch):
+    """The kernel path takes the rank from its one next_use call: no host
+    rank, one rank launch a job; the plain path takes none."""
+    def refuse(*a, **k):
+        raise AssertionError("the host's frequency_rank ran")
+    monkeypatch.setattr(replay_scan_module, "frequency_rank", refuse)
+    from repro_torch.core import policies_torch
+    assert not hasattr(policies_torch, "frequency_rank")
+    ids, cm, budgets = _sweep_case()
+    policies = list(POLICY_WEIGHTS)
+    ops.reset_launch_counts()
+    got = [sweep_torch(policies, ids, cm, budgets, num_objects=24)
+           for _ in range(3)]
+    assert next_use_cuda.rank_launches == 3
+    assert ops.launch_counts()["next_use"] == 3
+    sweep_torch(policies, ids, cm, budgets, num_objects=24, use_kernel=False)
+    assert next_use_cuda.rank_launches == 3
+    want = sweep_torch(policies, ids, cm, budgets, num_objects=24,
+                       device="cpu")
+    for g in got:
+        np.testing.assert_array_equal(g, want)
 
 
 def _sweep_case():

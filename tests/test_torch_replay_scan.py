@@ -30,7 +30,7 @@ from repro.core.policies_jax import _simulate as jax_simulate
 from repro.core.policies_jax import sweep_jax
 from repro.core.trace import next_use_indices
 from repro_torch.core import policies_torch as pt
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.replay_scan import (CHUNK, SLOT_WORDS, STAGE_BYTES,
                                              FULL_WARPS, STATIC_WARPS,
                                              frequency_rank,
@@ -383,6 +383,58 @@ def test_frequency_rank_equals_the_step_loops_counts():
         got = frequency_rank(ids)
         assert got.dtype == np.int32
         np.testing.assert_array_equal(got, np.array(want, np.int64))
+
+
+def _rank_ids(shape):
+    rng = np.random.default_rng(6)
+    if shape == "T=0":
+        return np.zeros(0, np.int32), 1
+    if shape == "T=1":
+        return np.array([3], np.int32), 4
+    if shape == "all equal":
+        return np.full(777, 5, np.int32), 9
+    if shape == "N=1":
+        return np.zeros(300, np.int32), 1
+    ids = rng.integers(0, 50, 4000)          # "half one id"
+    ids[rng.random(4000) < 0.5] = 17
+    return ids.astype(np.int32), 50
+
+
+@pytest.mark.parametrize("shape", ["T=0", "T=1", "all equal", "N=1",
+                                   "half one id"])
+def test_frequency_rank_ref_equals_the_step_loops_counts(shape):
+    """The plain PyTorch rank (next_use's with_rank on the CPU) and the
+    numpy one equal the step loop's counts on the edge shapes."""
+    ids, N = _rank_ids(shape)
+    counts = np.zeros(N, np.int64)
+    want = []
+    for i in ids:
+        counts[i] += 1
+        want.append(counts[i])
+    want = np.array(want, np.int64)
+    np.testing.assert_array_equal(frequency_rank(ids), want)
+    got = ref.frequency_rank_ref(torch.tensor(ids))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("shape", ["T=1", "all equal", "N=1", "half one id"])
+@pytest.mark.parametrize("with_rank", [False, True])
+def test_next_use_with_rank_on_the_cpu(shape, with_rank):
+    """ops.next_use's plain path: next(t) alone as before, or (next, rank)
+    equal to the plain next(t) and to `frequency_rank`; no kernel runs."""
+    ids, N = _rank_ids(shape)
+    ids_t = torch.tensor(ids)
+    ops.reset_launch_counts()
+    got = ops.next_use(ids_t, N, use_kernel=False, with_rank=with_rank)
+    nxt = got[0] if with_rank else got
+    assert torch.is_tensor(nxt) and nxt.dtype == torch.int32
+    np.testing.assert_array_equal(nxt.numpy(), next_use_indices(ids, N))
+    assert torch.equal(nxt, ref.next_use_ref(ids_t, N))
+    if with_rank:
+        assert len(got) == 2
+        np.testing.assert_array_equal(got[1].numpy(), frequency_rank(ids))
+    assert ops.launch_counts()["next_use"] == 0
 
 
 @pytest.mark.parametrize("cells,N,map_shared,all_shared", [
