@@ -14,9 +14,10 @@ toolkit. Its phases, in order, each printing one JSON line:
   price vector x budget) grid on a 20k-request trace on the card through
   `replay_scan`, through the step loop with `evict_argmin` (the trajectory
   path's loop, over the whole grid), through the plain step loop, and on
-  the CPU (the four grids must be bit-equal), score the dollars against
-  the exact optimum, and check the optimum's schedules through the
-  occupancy scan.
+  the CPU (the four grids must be bit-equal), and a byte-budget grid on a
+  20k-request CDN trace through `replay_bytes` and its plain step loop on
+  the card (bit-equal); score the dollars against the exact optimum, and
+  check the optimum's schedules through the occupancy scan.
 * `costfoo_cdn`: bracket the dollar-optimum of a 200k-request
   variable-size CDN trace with cost-FOO, its rounded schedule checked on
   the card, the bracket equal to a CPU run's.
@@ -105,6 +106,7 @@ from repro_torch.core import (PRICE_VECTORS, Trace, cost_foo,  # noqa: E402
                               sweep_torch, twemcache_like, wiki_cdn_like)
 from repro_torch.core.policies_torch import (_replay,  # noqa: E402
                                              stack_policy_weights)
+from repro_torch.core import replay_bytes_ref  # noqa: E402
 from repro_torch.core.trace import next_use_indices  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.egress import EgressCache, ObjectStore  # noqa: E402
@@ -139,7 +141,8 @@ from repro_torch.kernels.interval_occupancy import (  # noqa: E402
 from repro_torch.kernels.next_use import (digit_passes,  # noqa: E402
                                           next_use_cuda, plan)
 from repro_torch.kernels.replay_scan import (  # noqa: E402
-    WORK_COLUMNS, frequency_rank, replay_scan_cuda)
+    BYTE_WORK_COLUMNS, WORK_COLUMNS, frequency_rank, replay_bytes_cuda,
+    replay_scan_cuda)
 from repro_torch.kernels import replay_scan as replay_scan_module  # noqa: E402
 import _replay_cases  # noqa: E402  (tests/: the replay kernel's edge cases)
 
@@ -150,6 +153,10 @@ POLICIES = ["lru", "lfu", "gds", "gdsf", "belady", "cost_belady"]
 PRICES = list(PRICE_VECTORS)
 PARITY_BUDGETS = np.array([32, 64, 128, 256])
 FULL_BUDGETS = np.array([320, 640, 1280, 2560])
+# the byte parity grid's budgets, shares of its catalog's bytes: the
+# smallest fetch the largest objects through, misses evict several victims,
+# and at half the catalog tables outgrow the shared slots
+BYTE_PARITY_SHARES = (0.005, 0.02, 0.1, 0.5)
 SCAN_TILE = 4096   # items a block of the scan takes above 2^21 items
 SCAN_T = [1, 31, 4095, 4096, 4097, 200_000, 2**24 + 3,
           # tile boundaries (2048-item tiles up to 2^21 items, 4096 above), the
@@ -185,6 +192,12 @@ KERNEL_INFO = {
         replaces_function="_simulate's lax.scan (with evict_argmin_pallas "
                           "inside), vmapped by sweep_jax "
                           "(src/repro/core/policies_jax.py:233)"),
+    "replay_bytes": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/replay_scan.cu",
+        replaces="src/repro/core/policies.py:84",
+        replaces_function="_simulate_priority and _simulate_oracle (host "
+                          "only: the JAX package has no byte replay on the "
+                          "device)"),
 }
 TOLERANCE = {
     "evict_argmin": "exact",
@@ -196,6 +209,7 @@ TOLERANCE = {
 }
 TOLERANCE["interval_occupancy"] = TOLERANCE["occupancy_feasible"]
 TOLERANCE["replay_scan"] = "exact: dollars and hits bit-equal"
+TOLERANCE["replay_bytes"] = TOLERANCE["replay_scan"]
 SCORE_OPS = 7   # float32 operations a scored slot: next use to float, the
                 # gap, its max with 1, size * gap, the quotient, w_cb's
                 # product, the sum (the compare not counted)
@@ -671,12 +685,71 @@ def price_matrix(tr: Trace) -> np.ndarray:
     return np.stack([miss_costs(tr.sizes, PRICE_VECTORS[p]) for p in PRICES])
 
 
+def bytes_parity(seed: int) -> dict:
+    """The byte replay at the parity size, bit-equal two ways on the card:
+    sweep_torch's kernel path (one `replay_bytes` launch, no `replay_scan`)
+    and its plain step loop (`_replay` on the same whole-byte sizes). The
+    trace is wiki_cdn_like's 20k requests of 12k objects, sizes rounded up
+    to whole bytes, budgets `BYTE_PARITY_SHARES` of its catalog; checked
+    to fetch objects through, to evict several victims on some miss, and to
+    move tables past the shared slots; its LRU cells at the first price
+    also equal `replay_bytes_ref`'s, victims and fetch-throughs too."""
+    tr = wiki_cdn_like(n_objects=12_000, n_requests=20_000, seed=seed)
+    sizes = np.ceil(tr.sizes)
+    cm = np.stack([miss_costs(sizes, PRICE_VECTORS[p]) for p in PRICES])
+    budgets = np.array([int(s * sizes.sum()) for s in BYTE_PARITY_SHARES],
+                       np.int64)
+    kw = dict(num_objects=tr.num_objects, sizes=sizes, return_hits=True,
+              budget_unit="bytes", device="cuda")
+    ops.reset_launch_counts()
+    prof = {}
+    d, h = sweep_torch(POLICIES, tr.ids, cm, budgets, profile=prof, **kw)
+    launches = ops.launch_counts()
+    check(launches == {**NO_LAUNCHES, "replay_bytes": 1, "next_use": 1},
+          f"replay_bytes path launches {launches}")
+    t0 = time.perf_counter()
+    pd, ph = sweep_torch(POLICIES, tr.ids, cm, budgets, use_kernel=False,
+                         **kw)
+    plain_s = time.perf_counter() - t0
+    check(np.array_equal(d.view(np.int32), pd.view(np.int32))
+          and np.array_equal(h, ph),
+          "replay_bytes grid differs from the plain step loop: max gap "
+          f"{float(np.abs(d - pd).max())}, hits {int(np.abs(h - ph).max())}")
+    work = prof["work"]
+    col = {c: work[..., j] for j, c in enumerate(BYTE_WORK_COLUMNS)}
+    # LRU at the first price by the plain reference too, which also counts
+    # the misses that evicted more than one victim
+    rd, rh, rv, rf, multi = replay_bytes_ref.replay_grid(
+        tr.ids, cm[:1], sizes, stack_policy_weights(["lru"]), budgets)
+    lru = POLICIES.index("lru")
+    check(np.array_equal(rd[0, 0].numpy().view(np.int32),
+                         d[lru, 0].view(np.int32))
+          and np.array_equal(rh[0, 0].numpy(), h[lru, 0])
+          and np.array_equal(rv[0, 0].numpy(), col["victims"][lru, 0])
+          and np.array_equal(rf[0, 0].numpy(), col["fetch_through"][lru, 0]),
+          "replay_bytes's LRU cells differ from replay_bytes_ref's")
+    slots_shared = replay_scan_module.plan(
+        d.size, tr.num_objects, _build.library().replay_bytes_shared_limit(),
+        by_bytes=True)["slots_shared"]
+    check(bool((col["fetch_through"][..., 0] > 0).all()),
+          "the smallest byte budget fetched nothing through")
+    check(int(multi.sum()) > 0, "no miss evicted more than one victim")
+    check(int(col["peak_slots"].max()) > slots_shared,
+          f"no byte table outgrew the {slots_shared} shared slots")
+    return dict(trace=tr, sizes=sizes, cm=cm, budgets=budgets,
+                execute_s=prof["execute_s"], plain_s=plain_s,
+                launches=launches, work=work, slots_shared=slots_shared,
+                multi=multi[0, 0].tolist(),
+                max_abs_err=max(float(np.abs(d - pd).max()),
+                                float(np.abs(h - ph).max())))
+
+
 def phase_replay_parity(seed: int, dev) -> tuple:
     """The 20k grid four ways, bit-equal: sweep_torch through replay_scan
     (the main path), the step loop with the evict_argmin kernel (the
     trajectory path of `_simulate(trace_steps=True)`, over the whole grid;
     its launches are evict_argmin's on its path), sweep_torch's plain step
-    loop on the card, and the CPU."""
+    loop on the card, and the CPU; then the byte grid (`bytes_parity`)."""
     tr = twemcache_like(n_objects=2000, n_requests=20000, seed=seed)
     cm = price_matrix(tr)
     kw = dict(num_objects=tr.num_objects, sizes=tr.sizes, return_hits=True)
@@ -717,11 +790,27 @@ def phase_replay_parity(seed: int, dev) -> tuple:
               and np.array_equal(h, ref_hits),
               f"{label} grid differs from the CPU grid: max gap "
               f"{float(np.abs(d - ref_grid).max())}")
+    byte = bytes_parity(seed)
+    col = {c: byte["work"][..., j] for j, c in enumerate(BYTE_WORK_COLUMNS)}
     emit("replay_parity", trace="twemcache_like", n_objects=tr.num_objects,
          n_requests=T, grid=list(ref_grid.shape), bit_equal=True,
-         execute_s=secs, launches=launches)
+         execute_s=secs, launches=launches,
+         bytes=dict(trace="wiki_cdn_like, whole bytes",
+                    n_objects=byte["trace"].num_objects,
+                    n_requests=byte["trace"].num_requests,
+                    budgets=byte["budgets"].tolist(),
+                    budget_shares=list(BYTE_PARITY_SHARES),
+                    grid=list(byte["work"].shape[:3]), bit_equal=True,
+                    execute_s=dict(replay_bytes=byte["execute_s"],
+                                   cuda_plain=byte["plain_s"]),
+                    launches=byte["launches"],
+                    lru_multi_victim_misses=byte["multi"],
+                    victims=int(col["victims"].sum()),
+                    fetch_through=int(col["fetch_through"].sum()),
+                    peak_slots=int(col["peak_slots"].max()),
+                    slots_shared=byte["slots_shared"]))
     return (tr, cm, ref_grid, launches["step_loop_evict_argmin"],
-            secs["cuda_plain"])
+            secs["cuda_plain"], byte)
 
 
 def phase_regret(tr: Trace, cm: np.ndarray, grid: np.ndarray) -> None:
@@ -1220,8 +1309,72 @@ def replay_scan_rows(dev, errs: dict, launches: dict, shapes: list) -> list:
     return rows
 
 
+def replay_bytes_row(dev, errs: dict, launches: dict, byte: dict) -> dict:
+    """replay_bytes's row at the byte parity grid (`bytes_parity`): the
+    kernel alone on inputs already on the card (window `ms` over
+    back-to-back calls, `device_ms` from `device_time`), beside the plain
+    step loop's execute_s there. The bound counts this data's work, as
+    replay_scan's: each input read once (int32 sizes, int64 budgets) and
+    each output written once (dollars, hits, seven counters a cell), and
+    SCORE_OPS float32 operations a scored slot, from this run's counters,
+    against 67 TFLOP/s."""
+    tr, cm, budgets = byte["trace"], byte["cm"], byte["budgets"]
+    x = replay_inputs(stack_policy_weights(POLICIES), tr.ids, cm,
+                      byte["sizes"], budgets, dev)
+    # whole bytes as int32 (their float32 values can round)
+    x["sizes"] = torch.tensor(byte["sizes"].astype(np.int32), device=dev)
+    x["budgets"] = torch.tensor(budgets, dtype=torch.int64, device=dev)
+
+    def kernel():
+        return replay_bytes_cuda(**x)
+
+    _, _, work = kernel()
+    Q, (P, N), K, T = len(POLICIES), cm.shape, len(budgets), \
+        tr.num_requests
+    C = Q * P * K
+    nbytes = (3 * 4 * T + 24 * Q + 4 * P * N + 4 * N + 8 * K
+              + C * (8 + 8 * len(BYTE_WORK_COLUMNS)))
+    slots = int(work[..., 1].sum())
+    flops = SCORE_OPS * slots
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_PEAK_FLOPS * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    on_card = device_time(kernel, reps=3)
+    with SmClock() as clock:
+        window_ms = time_ms(kernel, reps=3, rounds=5)
+    return dict(
+        name="replay_bytes", **KERNEL_INFO["replay_bytes"],
+        launches=launches["replay_bytes"],
+        max_abs_err=errs["replay_bytes"],
+        tolerance=TOLERANCE["replay_bytes"],
+        ms=window_ms, plain_ms=byte["plain_s"] * 1e3,
+        plain_note="the plain step loop's time on the card (sweep_torch "
+                   "with use_kernel=False: next(t), the loop, the copy "
+                   "back) in replay_parity's byte grid",
+        device_ms=on_card["ms"], device_kernels=on_card["kernels"],
+        device_note="device_time: the kernel and the wrapper's ops",
+        plain_device_ms="not measured", l2="warm",
+        bound_ms=bound_ms,
+        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        bound_share=(bound_ms / on_card["ms"] if on_card["kernels"]
+                     else "not measured"),
+        bound_note=f"max({nbytes} bytes over 3.35 TB/s, {flops} float32 "
+                   f"operations ({slots} slots scored x {SCORE_OPS}) over "
+                   "67 TFLOP/s)",
+        library_ms=None, library_call=None,
+        library_note="none: no single PyTorch call replays a cache",
+        shape=dict(T=T, N=N, cells=C, budgets=[int(b) for b in budgets],
+                   data="wiki_cdn_like in whole bytes, replay_parity",
+                   scored_steps=int(work[..., 0].sum()), slots_scored=slots,
+                   peak_slots=int(work[..., 2].max()),
+                   victims=int(work[..., 5].sum()),
+                   fetch_through=int(work[..., 6].sum())),
+        sm_clock_mhz=clock.mhz)
+
+
 def phase_kernels(seed: int, dev, errs: dict, launches: dict,
-                  tr: Trace, schedule: dict, replay_shapes: list) -> None:
+                  tr: Trace, schedule: dict, replay_shapes: list,
+                  byte: dict) -> None:
     """Time each kernel at the main path's shapes beside its plain version
     and its bound.
 
@@ -1364,6 +1517,7 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
             **extra))
     del d26, z26, ids22, ids26
     rows += replay_scan_rows(dev, errs, launches, replay_shapes)
+    rows.append(replay_bytes_row(dev, errs, launches, byte))
     print(json.dumps({"kernels": rows}), flush=True)
 
 
@@ -3603,8 +3757,9 @@ def main() -> int:
          ptxas_replay_scan=(log.read_text().split("== replay_scan.cu")[-1]
                             .strip().splitlines() if log else "no log"))
     errs = phase_kernel_checks(args.seed, dev)
-    tr, cm, grid, loop_launches, parity_s = phase_replay_parity(args.seed,
-                                                                dev)
+    tr, cm, grid, loop_launches, parity_s, byte = phase_replay_parity(
+        args.seed, dev)
+    errs["replay_bytes"] = byte["max_abs_err"]
     phase_regret(tr, cm, grid)
     opt_launches = phase_opt_occupancy(tr, cm, dev)
     cdn = phase_costfoo_cdn(args.seed, dev)
@@ -3620,7 +3775,8 @@ def main() -> int:
                 "next_use": full["launches"]["next_use"],
                 "interval_occupancy": opt_launches["interval_occupancy"],
                 "occupancy_feasible": cdn["launches"]["occupancy_feasible"],
-                "replay_scan": full["launches"]["replay_scan"]}
+                "replay_scan": full["launches"]["replay_scan"],
+                "replay_bytes": byte["launches"]["replay_bytes"]}
     check(set(launches) == set(ops.KERNELS)
           and all(n > 0 for n in launches.values()),
           f"a kernel was not launched on its path: {launches}")
@@ -3630,7 +3786,7 @@ def main() -> int:
         ("replay_full (200k requests, 20k objects)", full["trace"],
          full["cm"], FULL_BUDGETS, full["plain_execute_s"], 2, full_profile)]
     phase_kernels(args.seed, dev, errs, launches, full["trace"], cdn,
-                  replay_shapes)
+                  replay_shapes, byte)
     print(smi[0], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

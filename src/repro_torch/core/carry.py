@@ -12,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["weight_stack", "trace_tensors", "cost_matrix", "to_numpy"]
+__all__ = ["weight_stack", "trace_tensors", "byte_sizes", "cost_matrix",
+           "to_numpy"]
 
 
 def weight_stack(stack, device) -> torch.Tensor:
@@ -33,6 +34,16 @@ def trace_tensors(ids, sizes, device, num_objects: int | None = None
         sizes = np.ones(n, np.float32)
     return (torch.as_tensor(ids, device=device),
             torch.as_tensor(np.asarray(sizes, dtype=np.float32), device=device))
+
+
+def byte_sizes(sizes, device) -> torch.Tensor:
+    """(N,) sizes in whole bytes -> int32 tensor for the byte replay;
+    ValueError unless every size is a whole number in [0, 2^31)."""
+    s = np.asarray(sizes, dtype=np.float64)
+    if s.ndim != 1 or not (np.isfinite(s).all() and (s == np.floor(s)).all()
+                           and (s >= 0).all() and (s < 2**31).all()):
+        raise ValueError("byte sizes must be whole numbers in [0, 2^31)")
+    return torch.as_tensor(s.astype(np.int32), device=device)
 
 
 def cost_matrix(costs, device) -> torch.Tensor:

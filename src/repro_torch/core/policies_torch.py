@@ -29,8 +29,21 @@ the reference's step-for-step form): there the victim argmin goes through
 `kernels.ops.evict_argmin`, the CUDA kernel on the card with
 `use_kernel=True`.
 
-Uniform-size pages (the exact reference's regime): one eviction per miss.
-Variable sizes stay on the host reference (`policies.py`).
+Two units of budget, one entry point. Pages (`budget_unit="pages"`, the
+exact reference's regime): every object takes one page, sizes enter only
+the cost terms, and a miss with a full cache evicts one victim. Bytes
+(`budget_unit="bytes"`, the paper's CDN arm, `policies.py`'s
+`_simulate_priority` and `_simulate_oracle` in these float32 scores): each
+object takes its whole-byte size; a miss of an object larger than the
+budget is fetched through (billed, not admitted, nothing evicted, L
+unchanged); any other miss evicts victims of least score, one after the
+other, each setting GreedyDual's L, until the object fits, then is
+admitted and scored with the current L. The bytes held are counted exactly
+in integers. Where no cached object scores below 3.4e38 the miss is
+fetched through, so a byte cache never holds more than its budget. With
+every size 1 and a budget of B >= 1, the byte replay is the page replay
+of B pages, bit for bit, wherever some cached score lies below 3.4e38.
+On the card the byte grid is one launch of `replay_bytes_kernel`.
 
 While a `torch.profiler` runs, `sweep_torch` opens a range for each of its
 phases (`repro_torch.sweep`, then `.prepare`, `.next_use`, which on the
@@ -52,7 +65,7 @@ from torch.autograd import profiler as _autograd_profiler
 
 from . import carry
 from ..kernels import _build, ops
-from ..kernels.replay_scan import replay_scan_cuda
+from ..kernels.replay_scan import replay_bytes_cuda, replay_scan_cuda
 
 __all__ = ["PolicyWeights", "POLICY_WEIGHTS", "simulate_torch", "sweep_torch",
            "stack_policy_weights", "resolve_device"]
@@ -117,6 +130,8 @@ def _replay(weights: torch.Tensor, ids: np.ndarray, nxt: np.ndarray,
     arrays, so the step loop reads its request and next use without a
     device round trip. Returns dollars (Q, P, K) float32 and hits (Q, P, K)
     int32, plus their per-step values (T, Q, P, K) when `trace_steps`.
+    Integer sizes (N,) make it the byte replay: whole bytes, budgets (K,)
+    int64 in bytes, and the scores read the sizes' float32 values.
     """
     dev = costs.device
     f32, i32 = torch.float32, torch.int32
@@ -124,6 +139,11 @@ def _replay(weights: torch.Tensor, ids: np.ndarray, nxt: np.ndarray,
     C = Q * P * K
     big = torch.tensor(_BIG, dtype=f32, device=dev)
     neg_big = torch.tensor(-_BIG, dtype=f32, device=dev)
+    by_bytes = not sizes.is_floating_point()
+    if by_bytes:
+        size_of = sizes.to(torch.int64)
+        size_host = size_of.cpu().numpy()
+        sizes = sizes.to(f32)
 
     # per-policy weights, shaped to broadcast over (Q, P, K) and (Q, P, K, N)
     w = [weights[:, j].reshape(Q, 1, 1) for j in range(6)]
@@ -135,7 +155,7 @@ def _replay(weights: torch.Tensor, ids: np.ndarray, nxt: np.ndarray,
 
     cached = torch.zeros((Q, P, K, N), dtype=torch.bool, device=dev)
     static = torch.full((Q, P, K, N), _BIG, dtype=f32, device=dev)
-    used = torch.zeros((Q, P, K), dtype=i32, device=dev)
+    used = torch.zeros((Q, P, K), dtype=budgets.dtype, device=dev)
     infl = torch.zeros((Q, P, K), dtype=f32, device=dev)
     dollars = torch.zeros((Q, P, K), dtype=f32, device=dev)
     hits = torch.zeros((Q, P, K), dtype=i32, device=dev)
@@ -175,26 +195,50 @@ def _replay(weights: torch.Tensor, ids: np.ndarray, nxt: np.ndarray,
         gap = torch.clamp_min(nxtf - tf, 1.0)
         cb = torch.where(never, neg_big, sizes * gap / neg_cost_floor)
         raw = static + w_bel * bel + w_cb * cb.view(1, P, 1, N)
-        victim, vscore = ops.evict_argmin(raw.view(C, N), touch, cached_rows,
-                                          use_kernel=use_kernel)
-        victim, vscore = victim.view(Q, P, K), vscore.view(Q, P, K)
-        full = used >= capacity
+        if not by_bytes:
+            victim, vscore = ops.evict_argmin(raw.view(C, N), touch,
+                                              cached_rows,
+                                              use_kernel=use_kernel)
+            victim, vscore = victim.view(Q, P, K), vscore.view(Q, P, K)
+            full = used >= capacity
 
-        # eq.-(2) semantics: a miss always inserts (mandatory displacement)
-        do_insert = ~is_hit
-        do_evict = do_insert & full & (vscore < big)
-        # clear the victim's slot; cells that evict nothing clear column i
-        evicted = torch.where(do_evict, victim, i)
-        cached_rows.scatter_(1, evicted.view(C, 1).to(torch.int64), False)
-        # GreedyDual aging: L := priority of the evicted victim
-        infl = torch.where(do_evict & gd_active, vscore, infl)
+            # eq.-(2) semantics: a miss always inserts (mandatory
+            # displacement)
+            admit = ~is_hit
+            do_evict = admit & full & (vscore < big)
+            # clear the victim's slot; cells that evict nothing clear
+            # column i
+            evicted = torch.where(do_evict, victim, i)
+            cached_rows.scatter_(1, evicted.view(C, 1).to(torch.int64),
+                                 False)
+            # GreedyDual aging: L := priority of the evicted victim
+            infl = torch.where(do_evict & gd_active, vscore, infl)
+            used -= do_evict.to(i32)
+            used += admit
+        else:
+            size_i = int(size_host[i])
+            # a miss of an object larger than the budget is fetched through
+            admit = ~is_hit & (capacity >= size_i)
+            need = admit & (used + size_i > capacity)
+            while bool(need.any()):   # evict until it fits, victim by victim
+                victim, vscore = ops.evict_argmin(raw.view(C, N), touch,
+                                                  cached_rows,
+                                                  use_kernel=use_kernel)
+                victim, vscore = victim.view(Q, P, K), vscore.view(Q, P, K)
+                do_evict = need & (vscore < big)
+                admit &= do_evict | ~need   # nothing to evict: fetch through
+                evicted = torch.where(do_evict, victim, i)
+                cached_rows.scatter_(1, evicted.view(C, 1).to(torch.int64),
+                                     False)
+                infl = torch.where(do_evict & gd_active, vscore, infl)
+                used -= torch.where(do_evict, size_of[victim.long()], 0)
+                need = do_evict & (used + size_i > capacity)
+            used += torch.where(admit, size_i, 0)
         cos_i = cos_cols[i]
         my_static = (w[0] * tf + w[1] * fi
                      + w[2] * (infl + cos_i)
                      + w[3] * (infl + fi * cos_i))
-        used -= do_evict.to(i32)
-        used += do_insert
-        cached_i.fill_(True)
+        cached_i.copy_(is_hit | admit)
         # touches (hit or insert) refresh score, next use and touch time
         static.select(3, i).copy_(my_static)
         nxtf.select(0, i).fill_(float(nu))
@@ -263,16 +307,34 @@ def _span(name: str = ""):
     return torch._C._profiler._RecordFunctionFast("repro_torch.sweep" + name)
 
 
-def _prepare(ids, costs, num_objects, sizes, dev):
+def _prepare(ids, costs, num_objects, sizes, dev, by_bytes=False):
+    """The inputs on `dev`: ids, costs and the sizes, float32 for pages
+    and int32 whole bytes for the byte replay."""
     ids = np.asarray(ids, dtype=np.int32)
     n = int(num_objects if num_objects is not None else ids.max() + 1)
     if len(ids) and (ids.min() < 0 or ids.max() >= n):
         raise ValueError(f"ids must lie in [0, {n})")
-    ids_t, sizes_t = carry.trace_tensors(ids, sizes, dev, num_objects=n)
+    if by_bytes:
+        if sizes is None:
+            raise ValueError("the byte replay needs the objects' sizes")
+        ids_t = torch.as_tensor(ids, device=dev)
+        sizes_t = carry.byte_sizes(sizes, dev)
+    else:
+        ids_t, sizes_t = carry.trace_tensors(ids, sizes, dev, num_objects=n)
     costs_t = carry.cost_matrix(costs, dev)
     if costs_t.shape[-1] != n or sizes_t.shape != (n,):
         raise ValueError(f"costs and sizes must have {n} objects")
     return ids, ids_t, n, sizes_t, costs_t
+
+
+def _budgets(budgets, by_bytes: bool) -> np.ndarray:
+    """Page budgets as int32; byte budgets as int64, whole and >= 0."""
+    if not by_bytes:
+        return np.asarray(budgets, dtype=np.int32)
+    b = np.asarray(budgets)
+    if b.ndim != 1 or not np.array_equal(b, np.floor(b)) or (b < 0).any():
+        raise ValueError("byte budgets must be whole numbers >= 0")
+    return b.astype(np.int64)
 
 
 def simulate_torch(policy: str, ids: np.ndarray, costs: np.ndarray,
@@ -295,14 +357,19 @@ def sweep_torch(policy, ids: np.ndarray, cost_matrix: np.ndarray,
                 sizes: np.ndarray | None = None,
                 use_kernel: bool | None = None,
                 profile: dict | None = None, device=None,
-                return_hits: bool = False):
+                return_hits: bool = False, budget_unit: str = "pages"):
     """Batched replay of a (policy x price-vector x budget) grid.
 
     policy:      one policy name -> dollars of shape (P, K); a sequence of
                  names / `PolicyWeights` (or a (Q, 6) stack) -> dollars of
                  shape (Q, P, K).
     cost_matrix: (P, N) per-object costs for P price vectors.
-    budgets:     (K,) page budgets.
+    budgets:     (K,) budgets in `budget_unit`.
+    budget_unit: "pages" (every object one page; sizes, ones if None, enter
+                 the cost terms only) or "bytes" (each object takes its
+                 size, which must be given in whole bytes below 2^31; see
+                 the module's docstring). On the card "bytes" launches
+                 `replay_bytes` in place of `replay_scan`.
     use_kernel:  None -> the CUDA kernels on the card (next(t) and the
                  frequency rank from one `next_use` call, then the whole
                  grid in one `replay_scan` launch, with no host step
@@ -311,12 +378,16 @@ def sweep_torch(policy, ids: np.ndarray, cost_matrix: np.ndarray,
     profile:     pass a dict to get `compile_s` (building and loading the
                  kernel library; ~0 once loaded), `execute_s` (next(t) plus
                  the replay, synchronised) and `cells`; on the kernel path
-                 also `work`, `replay_scan`'s counters as int64 numpy of
-                 dollars' shape plus a last axis in `WORK_COLUMNS` order,
-                 copied back after the results (none without `profile`).
+                 also `work`, the kernel's counters as int64 numpy of
+                 dollars' shape plus a last axis in `WORK_COLUMNS` order
+                 (`BYTE_WORK_COLUMNS` for bytes), copied back after the
+                 results (none without `profile`).
     device:      None -> CUDA, raising when there is no card.
     return_hits: also return the hit counts, int32 of the same shape.
     """
+    if budget_unit not in ("pages", "bytes"):
+        raise ValueError('budget_unit must be "pages" or "bytes"')
+    by_bytes = budget_unit == "bytes"
     dev = resolve_device(device)
     use_k = dev.type == "cuda" if use_kernel is None else use_kernel
     if use_k and dev.type != "cuda":
@@ -330,11 +401,11 @@ def sweep_torch(policy, ids: np.ndarray, cost_matrix: np.ndarray,
     with _span():
         with _span(".prepare"):
             ids, ids_t, n, sizes_t, costs_t = _prepare(
-                ids, cost_matrix, num_objects, sizes, dev)
+                ids, cost_matrix, num_objects, sizes, dev, by_bytes)
             if costs_t.dim() != 2:
                 raise ValueError("cost_matrix must have shape (P, N)")
             weights = carry.weight_stack(stack, dev)
-            budgets_t = torch.as_tensor(np.asarray(budgets, dtype=np.int32),
+            budgets_t = torch.as_tensor(_budgets(budgets, by_bytes),
                                         device=dev)
         work = None
         if use_k:
@@ -342,9 +413,9 @@ def sweep_torch(policy, ids: np.ndarray, cost_matrix: np.ndarray,
                 nxt_t, rank_t = ops.next_use(ids_t, n, use_kernel=True,
                                              with_rank=True)
             with _span(".replay"):
-                dollars, hits, work = replay_scan_cuda(
-                    weights, ids_t, nxt_t, rank_t, costs_t, sizes_t,
-                    budgets_t)
+                replay = replay_bytes_cuda if by_bytes else replay_scan_cuda
+                dollars, hits, work = replay(weights, ids_t, nxt_t, rank_t,
+                                             costs_t, sizes_t, budgets_t)
         else:
             with _span(".next_use"):
                 nxt_t = ops.next_use(ids_t, n, use_kernel=False)

@@ -113,6 +113,21 @@
 // step, whichever path scored it), the largest table it held, the cell's
 // clock64() cycles from start to end, and the cycles from reaching each
 // evicting step to its victim's decision.
+//
+// The byte replay (replay_bytes_kernel; plain version _replay with
+// byte_sizes) is the same walk and the same evicting step, built a second
+// time from the same functions (kBytes). Each object takes its whole-byte
+// size (int32, staged in the size's word; its float32 value, which the
+// scores read, is converted where it is needed) and a cell holds at most
+// its budget B (int64) of bytes, counted exactly. A miss of an object
+// larger than B is fetched through: billed, not admitted, nothing evicted.
+// Any other miss scores and evicts victims one after the other, each
+// setting infl in GreedyDual rows, until the object fits, then appends it;
+// where no score is below 3.4e38 it is fetched through instead, so the
+// cell never holds more than B bytes, nor more than N objects, which bounds
+// its table as in the page kernel. A victim's slot takes the table's last slot, so the table stays dense. A
+// slot has an eighth word, the whole-byte size; a cell writes two more
+// counters, its victims and its fetch-throughs.
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
@@ -126,8 +141,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 512;          // requests staged at once
 constexpr int kStageWords = 9;       // words a staged request
 constexpr int kSlotWords = 7;        // words a slot (the key takes two)
+constexpr int kByteSlotWords = 8;    // and the whole-byte size
 constexpr int kStageBytes = kChunk * kStageWords * 4;
 constexpr int kWorkWords = 5;        // work counters a cell
+constexpr int kByteWorkWords = 7;    // and victims, fetch-throughs
 constexpr float kBig = 3.4e38f;
 constexpr unsigned kBad = 0x80000000u;   // next-use word: w_cb * cb not finite
 constexpr unsigned kNuMask = 0x7fffffffu;
@@ -154,20 +171,23 @@ struct Slots {
   float* sb;
   float* size;
   float* negcf;
+  int* bytes;                // the byte replay's whole-byte size, else null
 };
 
 // The arrays of a table of `stride` slots from base on (8-byte aligned, the
-// key first, then five arrays of `stride` words). The base is either
-// derived from the block's shared memory or from the cell's device region,
-// never a pointer chosen between the two at run time, so that every access
-// compiles to a shared or a global load and the table's pointers stay in
-// registers.
+// key first, then five arrays of `stride` words, six in the byte replay).
+// The base is either derived from the block's shared memory or from the
+// cell's device region, never a pointer chosen between the two at run
+// time, so that every access compiles to a shared or a global load and the
+// table's pointers stay in registers.
+template <bool kBytes>
 __device__ __forceinline__ Slots slot_table(int* w, long long stride) {
   return Slots{reinterpret_cast<unsigned long long*>(w), w + 2 * stride,
                reinterpret_cast<unsigned*>(w + 3 * stride),
                reinterpret_cast<float*>(w + 4 * stride),
                reinterpret_cast<float*>(w + 5 * stride),
-               reinterpret_cast<float*>(w + 6 * stride)};
+               reinterpret_cast<float*>(w + 6 * stride),
+               kBytes ? w + 7 * stride : nullptr};
 }
 
 
@@ -270,13 +290,16 @@ struct Params {
   const float* costs;        // (P, N)
   const float* c_over_s;     // (P, N)
   const float* neg_cost_floor;  // (P, N)
-  const float* sizes;        // (N,)
-  const int* budgets;        // (K,)
+  const float* sizes;        // (N,); null in the byte replay
+  const int* budgets;        // (K,) pages; null in the byte replay
+  const int* byte_sizes;     // (N,) the byte replay's sizes, else null
+  const long long* byte_budgets;  // (K,) the byte replay's budgets, else null
   float* dollars;            // (C,)
   int* hits;                 // (C,)
-  long long* work;           // (C, kWorkWords)
+  long long* work;           // (C, kWorkWords), (C, kByteWorkWords) in bytes
   int* map_global;           // (C, N), or null when the map is shared
-  int* slots_global;         // (C, 7 * even(N)), or null when N fit shared
+  int* slots_global;         // (C, words * even(N)), or null when N fit
+                             // shared (7 words a slot, 8 in the byte replay)
   int T, N, P, K;
   int map_shared;            // 1: the map in shared memory
   int slots_shared;          // slots the shared table holds
@@ -291,6 +314,8 @@ struct Cell {
   int bad = 0;           // cached slots whose w_cb * cb was not finite at touch
   float infl = 0.0f, dollars = 0.0f;
   long long scored_steps = 0, scored_slots = 0, evict_cycles = 0;
+  long long held = 0;    // the byte replay: bytes cached
+  long long victims = 0, fetch_through = 0;
 };
 
 // The staged chunk, read-only while it is walked.
@@ -299,6 +324,7 @@ struct Stage {
   const unsigned* nu;   // next use, with kBad
   const float* cost;
   const float* size;
+  const int* bytes;     // the byte replay: the whole-byte size, in size's place
   const float* negcf;
   const float* cos;     // cost / size
   const float* fc;      // frequency * cost / size
@@ -328,6 +354,7 @@ struct Control {
 
 // Request j of the chunk (t = t0 + j) puts its object in slot s, which
 // held a slot flagged `old_bad` (0 for a new one), and touches it.
+template <bool kBytes>
 __device__ __forceinline__ void place(Cell& c, const Stage& st, int* map,
                                       const Slots& t, int s, int j, int t0,
                                       unsigned old_bad, const float* w,
@@ -335,7 +362,13 @@ __device__ __forceinline__ void place(Cell& c, const Stage& st, int* map,
   const int i = st.id[j];
   map[i] = s;
   t.obj[s] = i;
-  t.size[s] = st.size[j];
+  if constexpr (kBytes) {
+    const int b = st.bytes[j];
+    t.size[s] = __int2float_rn(b);
+    t.bytes[s] = b;
+  } else {
+    t.size[s] = st.size[j];
+  }
   t.negcf[s] = st.negcf[j];
   c.bad += int(st.nu[j] >> 31) - int(old_bad);
   unsigned img;
@@ -349,8 +382,90 @@ struct Row {
   const float* w;
   bool gd_active, static_row;
   int budget, T, nw;
+  long long byte_budget;   // the byte replay's budget
   unsigned big_img;
 };
+
+// An evicting step at request j of the chunk: the minimum of (score, touch)
+// over the cached objects (the requested one is not among them: a miss),
+// scored by the row's warps. Returns whether the winner is evicted (its
+// score below 3.4e38, or the NaN rule's object 0), with its slot in v and,
+// where it counts (the NaN rule, GreedyDual rows), its score in vscore.
+__device__ __forceinline__ bool evicting_step(Cell& c, int j, int t0,
+                                              int* map, const Slots t,
+                                              const Row& row, Control* ctl,
+                                              Key* winners, int& v,
+                                              float& vscore) {
+  const int lane = threadIdx.x & 31;
+  const float* w = row.w;
+  const long long reached = clock64();
+  ++c.scored_steps;
+  c.scored_slots += c.used;
+  const bool sb_alone = row.static_row && c.bad == 0;
+  const int team = 32 * row.nw;
+  if (row.nw > 1) {
+    if (lane == 0) {
+      ctl->event = sb_alone ? kScore | kStatic : kScore;
+      ctl->used = c.used;
+      ctl->t = t0 + j;
+    }
+    bar_arrive(kGoBarrier, team);   // the helpers wait; warp 0 need not
+  }
+  const float tf = __int2float_rn(t0 + j);
+  Key win = score_share(t, c.used, lane, team, sb_alone, tf, row.T, w[5]);
+  if (row.nw > 1) {
+    bar_sync(kDoneBarrier, team);
+    win = warp_argmin_distinct(lane == 0 ? win
+                               : lane < row.nw ? winners[lane]
+                                               : empty_key());
+  }
+  bool evict;
+  vscore = 0.0f;
+  if (key_image(win) == kNanImage) {   // a NaN: the plain version's victim 0
+    v = map[0];
+    vscore = v >= 0 ? slot_score(t, v, tf, row.T, w[5]) : kBig;
+    evict = vscore < kBig;
+  } else {
+    v = win.slot;
+    if (v >= 0 && row.gd_active) {
+      vscore = slot_score(t, v, tf, row.T, w[5]);
+      evict = vscore < kBig;
+    } else {
+      evict = key_image(win) < row.big_img;   // kEmpty when there is none
+    }
+  }
+  c.evict_cycles += clock64() - reached;
+  return evict;
+}
+
+// The byte replay drops the victim in slot v: the table's last slot takes
+// its place, so the table stays dense. Every lane reads before any writes.
+__device__ __forceinline__ void drop_slot(Cell& c, int* map, const Slots t,
+                                          int v) {
+  const int last = c.used - 1;
+  const int gone = t.obj[v], moved = t.obj[last];
+  const unsigned gone_nu = t.nu[v];
+  const int gone_bytes = t.bytes[v];
+  const unsigned long long key = t.key[last];
+  const unsigned nu = t.nu[last];
+  const float sb = t.sb[last], size = t.size[last], negcf = t.negcf[last];
+  const int bytes = t.bytes[last];
+  __syncwarp();
+  map[gone] = -1;
+  if (v != last) {
+    map[moved] = v;
+    t.key[v] = key;
+    t.obj[v] = moved;
+    t.nu[v] = nu;
+    t.sb[v] = sb;
+    t.size[v] = size;
+    t.negcf[v] = negcf;
+    t.bytes[v] = bytes;
+  }
+  c.bad -= int(gone_nu >> 31);
+  c.held -= gone_bytes;
+  c.used = last;
+}
 
 // Warp 0 replays the chunk from request j on, table t holding `capacity`
 // slots, until the chunk's end (kChunkDone) or a full table (kSpill, with
@@ -361,8 +476,10 @@ struct Row {
 // (__match_any_sync); hits grow by the run's length, and dollars not at all
 // (a hit adds 0.0f, and the dollar sum, begun at +0.0, is never -0.0, so
 // that add never changes its bits). The first miss goes on alone, and if
-// the table is full it is an evicting step, scored and decided here.
+// the table is full it is an evicting step, scored and decided here (in
+// the byte replay: as many as it takes to fit, or a fetch-through).
 // `track_bad`: some slot may hold kBad.
+template <bool kBytes>
 __device__ __forceinline__ int replay_chunk(Cell& c, int& j, int n, int t0,
                                             const Stage& st, int* map,
                                             const Slots t, int capacity,
@@ -373,7 +490,8 @@ __device__ __forceinline__ int replay_chunk(Cell& c, int& j, int n, int t0,
   for (;;) {
     if (c.append) {   // a miss appends (past the budget, too)
       if (c.used == capacity) return kSpill;
-      place(c, st, map, t, c.used++, j, t0, 0u, w, row.gd_active);
+      if constexpr (kBytes) c.held += st.bytes[j];
+      place<kBytes>(c, st, map, t, c.used++, j, t0, 0u, w, row.gd_active);
       c.peak = max(c.peak, c.used);
       c.append = false;
       ++j;
@@ -413,64 +531,49 @@ __device__ __forceinline__ int replay_chunk(Cell& c, int& j, int n, int t0,
     }
     // request j misses
     c.dollars = __fadd_rn(c.dollars, st.cost[j]);
-    if (c.used < row.budget) {
-      c.append = true;
-      continue;
-    }
-    // an evicting step: the minimum of (score, touch) over the cached
-    // objects (the requested one is not among them: a miss)
-    const long long reached = clock64();
-    ++c.scored_steps;
-    c.scored_slots += c.used;
-    const bool sb_alone = row.static_row && c.bad == 0;
-    const int team = 32 * row.nw;
-    if (row.nw > 1) {
-      if (lane == 0) {
-        ctl->event = sb_alone ? kScore | kStatic : kScore;
-        ctl->used = c.used;
-        ctl->t = t0 + j;
+    int v;   // the victim's slot
+    float vscore;
+    if constexpr (kBytes) {
+      // evict until it fits; an object larger than the budget, or one that
+      // finds nothing to evict, is fetched through
+      const int bytes = st.bytes[j];
+      bool admit = bytes <= row.byte_budget;
+      while (admit && c.held + bytes > row.byte_budget) {
+        if (!evicting_step(c, j, t0, map, t, row, ctl, winners, v, vscore)) {
+          admit = false;
+          break;
+        }
+        if (row.gd_active) c.infl = vscore;
+        drop_slot(c, map, t, v);
+        ++c.victims;
       }
-      bar_arrive(kGoBarrier, team);   // the helpers wait; warp 0 need not
-    }
-    const float tf = __int2float_rn(t0 + j);
-    Key win = score_share(t, c.used, lane, team, sb_alone, tf, row.T, w[5]);
-    if (row.nw > 1) {
-      bar_sync(kDoneBarrier, team);
-      win = warp_argmin_distinct(lane == 0 ? win
-                                 : lane < row.nw ? winners[lane]
-                                                 : empty_key());
-    }
-    int v;   // the victim's slot, -1 for none
-    float vscore = 0.0f;
-    bool evict;
-    if (key_image(win) == kNanImage) {   // a NaN: the plain version's victim 0
-      v = map[0];
-      vscore = v >= 0 ? slot_score(t, v, tf, row.T, w[5]) : kBig;
-      evict = vscore < kBig;
-    } else {
-      v = win.slot;
-      if (v >= 0 && row.gd_active) {
-        vscore = slot_score(t, v, tf, row.T, w[5]);
-        evict = vscore < kBig;
+      if (admit) {
+        c.append = true;
       } else {
-        evict = key_image(win) < row.big_img;   // kEmpty when there is none
+        ++c.fetch_through;
+        ++j;
       }
+    } else {
+      if (c.used < row.budget) {
+        c.append = true;
+        continue;
+      }
+      if (!evicting_step(c, j, t0, map, t, row, ctl, winners, v, vscore)) {
+        c.append = true;   // nothing is evicted
+        continue;
+      }
+      if (row.gd_active) c.infl = vscore;
+      map[t.obj[v]] = -1;
+      place<false>(c, st, map, t, v, j, t0, t.nu[v] >> 31, w, row.gd_active);
+      ++j;
     }
-    c.evict_cycles += clock64() - reached;
-    if (!evict) {   // nothing is evicted
-      c.append = true;
-      continue;
-    }
-    if (row.gd_active) c.infl = vscore;
-    map[t.obj[v]] = -1;
-    place(c, st, map, t, v, j, t0, t.nu[v] >> 31, w, row.gd_active);
-    ++j;
   }
 }
 
-template <bool kMapShared>
-__global__ void __launch_bounds__(kThreads, 1)
-    replay_scan_kernel(const Params p) {
+// One cell's replay, for the page kernel (kBytes false) and the byte
+// kernel.
+template <bool kMapShared, bool kBytes>
+__device__ __forceinline__ void replay_cell(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Key winners[kWarps];
   __shared__ Control ctl;
@@ -495,7 +598,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* st_ab = st_fc + kChunk;
   float* st_wb = st_ab + kChunk;
   unsigned* st_img = reinterpret_cast<unsigned*>(st_fc);
-  const Stage st{st_id, st_nu, st_cost, st_size, st_negcf,
+  int* st_bytes = reinterpret_cast<int*>(st_size);
+  const Stage st{st_id, st_nu, st_cost, st_size, st_bytes, st_negcf,
                  st_cos, st_fc, st_ab, st_wb, st_img};
   unsigned char* rest = smem + kStageBytes;
   int* map;
@@ -508,15 +612,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     map = p.map_global + (long long)cell * N;
     shared_base = reinterpret_cast<int*>(rest);
   }
-  const Slots shared_table = slot_table(shared_base, p.slots_shared);
+  const Slots shared_table = slot_table<kBytes>(shared_base, p.slots_shared);
   // the cell's region of N slots (an even stride, for the keys' alignment)
   // in device memory, taken only once the table has moved there (so only
   // when the layout gave one)
   int* const slots_global = p.slots_global;
   const int gstride = (N + 1) & ~1;
-  const long long region = (long long)cell * kSlotWords * gstride;
+  const long long region =
+      (long long)cell * (kBytes ? kByteSlotWords : kSlotWords) * gstride;
   auto global_table = [=] {
-    return slot_table(slots_global + region, gstride);
+    return slot_table<kBytes>(slots_global + region, gstride);
   };
 
   float w[6];
@@ -526,7 +631,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   row.w = w;
   row.gd_active = __fadd_rn(w[2], w[3]) > 0.0f;
   row.static_row = w[5] == 0.0f;
-  row.budget = p.budgets[k];
+  if constexpr (kBytes)
+    row.byte_budget = p.byte_budgets[k];
+  else
+    row.budget = p.budgets[k];
   row.T = T;
   row.big_img = order_image(kBig);
   const int one_warp = row.static_row ? kStaticOne : kFullOne;
@@ -555,7 +663,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int nu = p.nxt[t0 + r];
       const float tf = __int2float_rn(t0 + r);
       const float fi = __int2float_rn(p.rank[t0 + r]);
-      const float size = p.sizes[i];
+      float size;
+      if constexpr (kBytes) {
+        const int bytes = p.byte_sizes[i];
+        size = __int2float_rn(bytes);
+        st_bytes[r] = bytes;
+      } else {
+        size = p.sizes[i];
+        st_size[r] = size;
+      }
       const float negcf = negcf_row[i];
       const float cos = cos_row[i];
       unsigned nuw = unsigned(nu);
@@ -569,7 +685,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       st_id[r] = i;
       st_nu[r] = nuw;
       st_cost[r] = cost_row[i];
-      st_size[r] = size;
       st_negcf[r] = negcf;
       st_cos[r] = cos;
       st_wb[r] = wb;
@@ -584,8 +699,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     // a slot can hold kBad only if one did before or the chunk brings one
     const bool track_bad = __syncthreads_or(flagged) || c.bad > 0;
-    // every warp counts the same scoring warps for this chunk
-    row.nw = warps_for(max(chunk_used, row.budget), one_warp, per_warp);
+    // every warp counts the same scoring warps for this chunk: from the
+    // table an evicting step will see, max(used, budget) of pages, or the
+    // byte replay's table as the chunk starts
+    row.nw = warps_for(kBytes ? chunk_used : max(chunk_used, row.budget),
+                       one_warp, per_warp);
     const int team = 32 * row.nw;
     if (warp >= row.nw) continue;
 
@@ -609,13 +727,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 
     int j = 0;   // the next request of the chunk
-    while (kSpill == (in_global ? replay_chunk(c, j, n, t0, st, map,
-                                               global_table(), N, row,
-                                               track_bad, &ctl, winners)
-                                : replay_chunk(c, j, n, t0, st, map,
-                                               shared_table, p.slots_shared,
-                                               row, track_bad, &ctl,
-                                               winners))) {
+    while (kSpill == (in_global
+                          ? replay_chunk<kBytes>(c, j, n, t0, st, map,
+                                                 global_table(), N,
+                                                 row, track_bad, &ctl,
+                                                 winners)
+                          : replay_chunk<kBytes>(c, j, n, t0, st, map,
+                                                 shared_table, p.slots_shared,
+                                                 row, track_bad, &ctl,
+                                                 winners))) {
       // the table moves to this cell's region of N slots, once
       const Slots g = global_table();
       for (int s = lane; s < c.used; s += 32) {
@@ -625,6 +745,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         g.sb[s] = shared_table.sb[s];
         g.size[s] = shared_table.size[s];
         g.negcf[s] = shared_table.negcf[s];
+        if constexpr (kBytes) g.bytes[s] = shared_table.bytes[s];
       }
       in_global = true;
       if (lane == 0) ctl.global = 1;
@@ -638,7 +759,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   if (tid == 0) {
-    long long* out = p.work + (long long)kWorkWords * cell;
+    long long* out =
+        p.work + (long long)(kBytes ? kByteWorkWords : kWorkWords) * cell;
     p.dollars[cell] = c.dollars;
     p.hits[cell] = c.hits;
     out[0] = c.scored_steps;
@@ -646,12 +768,61 @@ __global__ void __launch_bounds__(kThreads, 1)
     out[2] = c.peak;
     out[3] = clock64() - start;
     out[4] = c.evict_cycles;
+    if constexpr (kBytes) {
+      out[5] = c.victims;
+      out[6] = c.fetch_through;
+    }
   }
 }
 
-long long shared_bytes(int N, int map_shared, int slots_shared) {
+template <bool kMapShared>
+__global__ void __launch_bounds__(kThreads, 1)
+    replay_scan_kernel(const Params p) {
+  replay_cell<kMapShared, false>(p);
+}
+
+template <bool kMapShared>
+__global__ void __launch_bounds__(kThreads, 1)
+    replay_bytes_kernel(const Params p) {
+  replay_cell<kMapShared, true>(p);
+}
+
+long long shared_bytes(int N, int map_shared, int slots_shared,
+                       int slot_words) {
   return kStageBytes + (map_shared ? (((long long)N * 4 + 15) & ~15ll) : 0) +
-         (long long)kSlotWords * 4 * slots_shared;
+         (long long)slot_words * 4 * slots_shared;
+}
+
+template <typename Kernel>
+long long shared_limit(Kernel kernel) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, kernel) != cudaSuccess)
+    return -1;
+  return (long long)optin - (long long)attr.sharedSizeBytes;
+}
+
+// Checks the layout, sets the kernel's shared memory and launches C blocks.
+int launch(void (*kernel)(const Params), const Params& p, long long cells,
+           int slot_words, long long dynamic_bytes, long long limit,
+           void* stream) {
+  if (p.T < 0 || p.N < 1 || cells < 1 || cells > INT_MAX ||
+      p.slots_shared < 1 || p.slots_shared > p.N ||
+      (!p.map_shared && p.map_global == nullptr) ||
+      (p.slots_shared < p.N && p.slots_global == nullptr) ||
+      dynamic_bytes !=
+          shared_bytes(p.N, p.map_shared, p.slots_shared, slot_words) ||
+      dynamic_bytes > limit)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dynamic_bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(int)cells, kThreads, (size_t)dynamic_bytes,
+           (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -659,14 +830,11 @@ long long shared_bytes(int N, int map_shared, int slots_shared) {
 // Dynamic shared memory a block of the kernel may take on the current
 // device, or -1 on error.
 extern "C" long long replay_scan_shared_limit() {
-  int dev = 0, optin = 0;
-  cudaFuncAttributes attr;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess ||
-      cudaFuncGetAttributes(&attr, replay_scan_kernel<true>) != cudaSuccess)
-    return -1;
-  return (long long)optin - (long long)attr.sharedSizeBytes;
+  return shared_limit(replay_scan_kernel<true>);
+}
+
+extern "C" long long replay_bytes_shared_limit() {
+  return shared_limit(replay_bytes_kernel<true>);
 }
 
 // ids, nxt, rank: (T,) int32; weights (Q, 6), costs, c_over_s and
@@ -684,17 +852,6 @@ extern "C" int replay_scan_launch(
     void* work, void* map_global, void* slots_global, int T, int N, int Q,
     int P, int K, int map_shared, int slots_shared, long long dynamic_bytes,
     void* stream) {
-  const long long cells = (long long)Q * P * K;
-  if (T < 0 || N < 1 || cells < 1 || cells > INT_MAX || slots_shared < 1 ||
-      slots_shared > N || (!map_shared && map_global == nullptr) ||
-      (slots_shared < N && slots_global == nullptr) ||
-      dynamic_bytes != shared_bytes(N, map_shared, slots_shared) ||
-      dynamic_bytes > replay_scan_shared_limit())
-    return (int)cudaErrorInvalidValue;
-  auto kernel = map_shared ? replay_scan_kernel<true> : replay_scan_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dynamic_bytes);
-  if (err != cudaSuccess) return (int)err;
   Params p{static_cast<const int*>(ids),
            static_cast<const int*>(nxt),
            static_cast<const int*>(rank),
@@ -704,13 +861,50 @@ extern "C" int replay_scan_launch(
            static_cast<const float*>(neg_cost_floor),
            static_cast<const float*>(sizes),
            static_cast<const int*>(budgets),
+           nullptr,
+           nullptr,
            static_cast<float*>(dollars),
            static_cast<int*>(hits),
            static_cast<long long*>(work),
            static_cast<int*>(map_global),
            static_cast<int*>(slots_global),
            T, N, P, K, map_shared, slots_shared};
-  kernel<<<(int)cells, kThreads, (size_t)dynamic_bytes,
-           (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  return launch(map_shared ? replay_scan_kernel<true>
+                           : replay_scan_kernel<false>,
+                p, (long long)Q * P * K, kSlotWords, dynamic_bytes,
+                replay_scan_shared_limit(), stream);
+}
+
+// The byte replay's launch: as replay_scan_launch, with byte_sizes (N,)
+// int32 in place of sizes and byte_budgets (K,) int64 in place of budgets;
+// work (C, 7) int64; slots_global (C, 8 * (N rounded up to even)) int32
+// unless slots_shared == N.
+extern "C" int replay_bytes_launch(
+    const void* ids, const void* nxt, const void* rank, const void* weights,
+    const void* costs, const void* c_over_s, const void* neg_cost_floor,
+    const void* byte_sizes, const void* byte_budgets, void* dollars,
+    void* hits, void* work, void* map_global, void* slots_global, int T,
+    int N, int Q, int P, int K, int map_shared, int slots_shared,
+    long long dynamic_bytes, void* stream) {
+  Params p{static_cast<const int*>(ids),
+           static_cast<const int*>(nxt),
+           static_cast<const int*>(rank),
+           static_cast<const float*>(weights),
+           static_cast<const float*>(costs),
+           static_cast<const float*>(c_over_s),
+           static_cast<const float*>(neg_cost_floor),
+           nullptr,
+           nullptr,
+           static_cast<const int*>(byte_sizes),
+           static_cast<const long long*>(byte_budgets),
+           static_cast<float*>(dollars),
+           static_cast<int*>(hits),
+           static_cast<long long*>(work),
+           static_cast<int*>(map_global),
+           static_cast<int*>(slots_global),
+           T, N, P, K, map_shared, slots_shared};
+  return launch(map_shared ? replay_bytes_kernel<true>
+                           : replay_bytes_kernel<false>,
+                p, (long long)Q * P * K, kByteSlotWords, dynamic_bytes,
+                replay_bytes_shared_limit(), stream);
 }

@@ -15,19 +15,20 @@ from .evict_argmin import evict_argmin_cuda
 from .interval_occupancy import (interval_occupancy_cuda,
                                  occupancy_feasible_cuda)
 from .next_use import next_use_cuda
-from .replay_scan import replay_scan_cuda
+from .replay_scan import replay_bytes_cuda, replay_scan_cuda
 
 __all__ = ["on_cuda", "evict_argmin", "next_use", "interval_occupancy",
            "occupancy_feasible", "launch_counts", "reset_launch_counts",
            "KERNELS"]
 
 # name -> wrapper; each wrapper counts its own launches in `.launches`.
-# replay_scan has no dispatcher here: its plain version is the step loop of
-# `core.policies_torch`, and `sweep_torch` picks between the two.
+# replay_scan and replay_bytes have no dispatcher here: their plain version
+# is the step loop of `core.policies_torch`, and `sweep_torch` picks.
 KERNELS = {"evict_argmin": evict_argmin_cuda, "next_use": next_use_cuda,
            "interval_occupancy": interval_occupancy_cuda,
            "occupancy_feasible": occupancy_feasible_cuda,
-           "replay_scan": replay_scan_cuda}
+           "replay_scan": replay_scan_cuda,
+           "replay_bytes": replay_bytes_cuda}
 
 
 def on_cuda() -> bool:

@@ -152,3 +152,63 @@ def make(name: str, seed: int = 0) -> dict:
     return dict(weights=w, ids=ids.astype(np.int32),
                 costs=cm.astype(np.float32), sizes=sizes.astype(np.float32),
                 budgets=budgets(N))
+
+
+# The byte replay's grids (`budget_unit="bytes"`): whole-byte sizes, the
+# same weight rows, two price vectors, and byte budgets that reach its
+# edges. Shared by `test_torch_replay_bytes.py` and the card's tests.
+BYTE_CASES = ["pareto", "multi_victim", "ties", "unit"]
+
+
+def make_bytes(name: str, seed: int = 0) -> dict:
+    """One byte case's inputs: weights (Q, 6), ids (T,), costs (P, N),
+    sizes (N,) whole bytes (float64), budgets (K,) int64 bytes.
+
+    pareto:       Pareto sizes as the CDN arm's (a few objects larger than
+                  the small budgets, which are fetched through), costs from
+                  the sizes as list prices give them, budgets 0 (every miss
+                  fetched through), half the largest size, and 1, 5 and 20 %
+                  of the catalog's bytes.
+    multi_victim: mostly objects of 1-8 bytes and a few of 400-900, so that
+                  a large one's admission evicts many small ones (GreedyDual
+                  rows set L at each), and budgets near one large object.
+    ties:         two sizes and unit costs: scores tie, the touch decides.
+    unit:         every size 1, budgets 1, 7 and N pages' worth: the page
+                  replay's grid, which the byte replay must repeat.
+    """
+    rng = np.random.default_rng([100 + BYTE_CASES.index(name), seed])
+    w = weights()
+    if name == "pareto":
+        T, N = 1500, 200
+        ids = rng.integers(0, N, T)
+        sizes = np.ceil(np.clip((rng.pareto(1.0, N) + 1.0) * 300.0, 64.0,
+                                5e6))
+        fee, egress = np.array([0.4e-6, 0.04e-6]), np.array([0.09e-9,
+                                                             0.12e-9])
+        cm = fee[:, None] + sizes[None, :] * egress[:, None]
+        total = sizes.sum()
+        budgets = np.array([0, sizes.max() // 2, total // 100, total // 20,
+                            total // 5])
+    elif name == "multi_victim":
+        T, N = 1200, 120
+        ids = rng.integers(0, N, T)
+        sizes = rng.integers(1, 9, N).astype(np.float64)
+        big = rng.choice(N, 10, replace=False)
+        sizes[big] = rng.integers(400, 900, len(big))
+        cm = np.stack([2.0 ** rng.integers(0, 12, N),
+                       rng.lognormal(-12.0, 1.5, N)])
+        budgets = np.array([100, 950, 1400, 2500])
+    elif name == "ties":
+        T, N = 600, 30
+        ids = rng.integers(0, N, T)
+        sizes = rng.choice([3.0, 5.0], N)
+        cm = np.ones((2, N))
+        budgets = np.array([4, 11, 40])
+    else:
+        T, N = 500, 40
+        ids = rng.integers(0, N, T)
+        sizes = np.ones(N)
+        cm = rng.lognormal(-12.0, 1.5, (2, N))
+        budgets = np.array([1, 7, N])
+    return dict(weights=w, ids=ids.astype(np.int32), costs=cm,
+                sizes=sizes, budgets=budgets.astype(np.int64))

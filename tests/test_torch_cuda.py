@@ -23,8 +23,12 @@ from repro_torch.kernels.interval_occupancy import (error_chain,
                                                     occupancy_feasible_cuda)
 from repro_torch.kernels import _build
 from repro_torch.kernels.next_use import next_use_cuda, plan
-from repro_torch.kernels.replay_scan import frequency_rank, replay_scan_cuda
+from repro_torch.kernels.replay_scan import (BYTE_WORK_COLUMNS,
+                                             frequency_rank,
+                                             replay_bytes_cuda,
+                                             replay_scan_cuda)
 from repro_torch.kernels import replay_scan as replay_scan_module
+from repro_torch.core import replay_bytes_ref
 from repro_torch.core.policies_torch import _replay, stack_policy_weights
 from repro_torch.configs import get_config
 from repro_torch.models import get_model
@@ -316,7 +320,8 @@ def test_sweep_on_card_matches_cpu(cuda):
     got = sweep_torch(policies, ids, cost_matrix, budgets, num_objects=24)
     assert ops.launch_counts() == {"evict_argmin": 0, "next_use": 1,
                                    "interval_occupancy": 0,
-                                   "occupancy_feasible": 0, "replay_scan": 1}
+                                   "occupancy_feasible": 0, "replay_scan": 1,
+                                   "replay_bytes": 0}
     ops.reset_launch_counts()
     x = _replay_on_card(dict(weights=stack_policy_weights(policies), ids=ids,
                              costs=cost_matrix, sizes=np.ones(24),
@@ -489,6 +494,119 @@ def test_replay_scan_map_and_slots_in_device_memory(cuda):
     work = _replay_kernel_against_step_loop(x)
     assert int(work[..., 2].max()) > layout["slots_shared"]
     assert int(work[..., 1, 0].sum()) > 0      # budget 12,000 scores there
+
+
+def _bytes_sweep(c: dict, device=None, **kw):
+    return sweep_torch(c["weights"], c["ids"], c["costs"], c["budgets"],
+                       num_objects=c["costs"].shape[1], sizes=c["sizes"],
+                       return_hits=True, budget_unit="bytes", device=device,
+                       **kw)
+
+
+def _most_resident(sizes, budget) -> int:
+    """The most objects that fit in `budget` bytes: the smallest sizes'."""
+    return int(np.searchsorted(np.cumsum(np.sort(sizes)), budget,
+                               side="right"))
+
+
+def _bytes_against_reference(c: dict, runs: int = 2):
+    """The byte kernel's grid `runs` times against the plain reference:
+    dollars' bits, hits, victims and fetch-throughs, the counts repeating
+    and no cell's table past the most objects its budget holds. Returns
+    the last run's work."""
+    _, _, victims, fetched, _ = replay_bytes_ref.replay_grid(
+        c["ids"], c["costs"], c["sizes"], c["weights"], c["budgets"])
+    want_d, want_h = _bytes_sweep(c, "cpu")
+    works = []
+    for _ in range(runs):
+        prof = {}
+        d, h = _bytes_sweep(c, profile=prof)
+        work = prof["work"]
+        np.testing.assert_array_equal(d.view(np.int32),
+                                      want_d.view(np.int32))
+        np.testing.assert_array_equal(h, want_h)
+        assert work.shape == h.shape + (len(BYTE_WORK_COLUMNS),)
+        np.testing.assert_array_equal(work[..., 5], victims.numpy())
+        np.testing.assert_array_equal(work[..., 6], fetched.numpy())
+        for k, b in enumerate(c["budgets"]):
+            assert (work[..., k, 2] <= _most_resident(c["sizes"], b)).all()
+        # every victim is a scored step's; the clock's columns are times
+        assert (work[..., 5] <= work[..., 0]).all()
+        assert (work[..., 4] <= work[..., 3]).all()
+        works.append(work)
+    for work in works[1:]:
+        np.testing.assert_array_equal(work[..., :3], works[0][..., :3])
+        np.testing.assert_array_equal(work[..., 5:], works[0][..., 5:])
+    return works[-1]
+
+
+@pytest.mark.parametrize("name", _replay_cases.BYTE_CASES)
+def test_replay_bytes_matches_step_loop(cuda, name):
+    """The byte kernel (one `replay_bytes` launch a grid, no
+    `replay_scan`) bit-equal to the plain step loop on the CPU, twice, with
+    the plain reference's victims and fetch-throughs in its new work
+    columns."""
+    c = _replay_cases.make_bytes(name)
+    ops.reset_launch_counts()
+    work = _bytes_against_reference(c)
+    counts = ops.launch_counts()
+    assert counts["replay_bytes"] == 2 and counts["replay_scan"] == 0
+    if name == "pareto":
+        # budget 0 fetches every request through; at half the largest size
+        # the objects larger than the budget are
+        assert (work[..., 0, 6] == len(c["ids"])).all()
+        assert (work[..., 1, 6] > 0).all()
+
+
+def test_replay_bytes_table_in_device_memory(cuda):
+    """Tables past the shared slots: 20,000 objects of 1-4 bytes under a
+    budget that holds ~12,000, so those cells' tables move to device
+    memory; the other budget's stay in shared memory."""
+    rng = np.random.default_rng(12)
+    N, T = 20_000, 20_000
+    ids = np.concatenate([rng.permutation(N)[:15_000],
+                          rng.integers(0, N, T - 15_000)]).astype(np.int32)
+    sizes = rng.integers(1, 5, N).astype(np.float64)
+    c = dict(weights=_replay_cases.weights()[[0, 3, 5, 6]], ids=ids,
+             costs=rng.lognormal(-12.0, 1.5, (1, N)), sizes=sizes,
+             budgets=np.array([30_000, 8_000], np.int64))
+    layout = replay_scan_module.plan(
+        8, N, _build.library().replay_bytes_shared_limit(), by_bytes=True)
+    assert layout["slots_shared"] < _most_resident(sizes, c["budgets"][0])
+    work = _bytes_against_reference(c, runs=1)
+    assert int(work[..., 0, 2].max()) > layout["slots_shared"]
+    assert int(work[..., 1, 2].max()) <= layout["slots_shared"]
+    assert (work[..., 0, 5] > 0).all()
+
+
+def test_replay_bytes_unit_sizes_equal_page_kernel(cuda):
+    """Every size 1 and budgets of B bytes: the page kernel's grid at B
+    pages, bit for bit (the six policies and the mixed row)."""
+    c = _replay_cases.make_bytes("unit")
+    c["weights"] = c["weights"][:7]
+    d, h = _bytes_sweep(c)
+    pd, ph = sweep_torch(c["weights"], c["ids"], c["costs"],
+                         c["budgets"].astype(np.int32),
+                         num_objects=c["costs"].shape[1], sizes=c["sizes"],
+                         return_hits=True)
+    np.testing.assert_array_equal(d.view(np.int32), pd.view(np.int32))
+    np.testing.assert_array_equal(h, ph)
+
+
+def test_replay_bytes_wrapper_rejects_bad_inputs(cuda):
+    c = _replay_cases.make_bytes("ties")
+    x = _replay_on_card(dict(c, budgets=c["budgets"].astype(np.int32)), cuda)
+    with pytest.raises(ValueError):      # float sizes, int32 budgets
+        replay_bytes_cuda(**x)
+    x["sizes"] = x["sizes"].to(torch.int32)
+    with pytest.raises(ValueError):      # int32 budgets
+        replay_bytes_cuda(**x)
+    x["budgets"] = x["budgets"].to(torch.int64)
+    d, h, work = replay_bytes_cuda(**x)
+    want_d, want_h = _bytes_sweep(c, "cpu")
+    np.testing.assert_array_equal(d.cpu().numpy().view(np.int32),
+                                  want_d.view(np.int32))
+    np.testing.assert_array_equal(h.cpu().numpy(), want_h)
 
 
 _TILE = 4096   # the replaced design's tile; the carry tree has radix 256

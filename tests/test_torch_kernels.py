@@ -174,7 +174,8 @@ def test_dispatch_on_cpu_uses_plain_version():
     assert ops.next_use(ids, 2).tolist() == [2, 3, 3]
     assert ops.launch_counts() == {"evict_argmin": 0, "next_use": 0,
                                    "interval_occupancy": 0,
-                                   "occupancy_feasible": 0, "replay_scan": 0}
+                                   "occupancy_feasible": 0, "replay_scan": 0,
+                                   "replay_bytes": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
