@@ -1315,7 +1315,7 @@ def replay_bytes_row(dev, errs: dict, launches: dict, byte: dict) -> dict:
     back-to-back calls, `device_ms` from `device_time`), beside the plain
     step loop's execute_s there. The bound counts this data's work, as
     replay_scan's: each input read once (int32 sizes, int64 budgets) and
-    each output written once (dollars, hits, seven counters a cell), and
+    each output written once (dollars, hits, eight counters a cell), and
     SCORE_OPS float32 operations a scored slot, from this run's counters,
     against 67 TFLOP/s."""
     tr, cm, budgets = byte["trace"], byte["cm"], byte["budgets"]

@@ -74,9 +74,9 @@ _SIGNATURES = {
                            + [ctypes.c_longlong, _vp], ctypes.c_int),
     "replay_scan_shared_limit": ([], ctypes.c_longlong),
     # ids, nxt, rank, weights, costs, c_over_s, neg_cost_floor, byte_sizes,
-    # byte_budgets, dollars, hits, work, map_global, slots_global, T, N, Q,
-    # P, K, map_shared, slots_shared, dynamic_bytes, stream
-    "replay_bytes_launch": ([_vp] * 14 + [ctypes.c_int] * 7
+    # byte_budgets, dollars, hits, work, map_global, slots_global, bounds,
+    # T, N, Q, P, K, map_shared, slots_shared, dynamic_bytes, stream
+    "replay_bytes_launch": ([_vp] * 15 + [ctypes.c_int] * 7
                             + [ctypes.c_longlong, _vp], ctypes.c_int),
     "replay_bytes_shared_limit": ([], ctypes.c_longlong),
 }

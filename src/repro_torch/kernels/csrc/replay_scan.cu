@@ -126,8 +126,29 @@
 // where no score is below 3.4e38 it is fetched through instead, so the
 // cell never holds more than B bytes, nor more than N objects, which bounds
 // its table as in the page kernel. A victim's slot takes the table's last slot, so the table stays dense. A
-// slot has an eighth word, the whole-byte size; a cell writes two more
-// counters, its victims and its fetch-throughs.
+// slot has an eighth word, the whole-byte size; a cell writes three more
+// counters, its victims, its fetch-throughs and the slots its evicting
+// steps scored (rescanned_slots).
+//
+// The byte replay's cost-Belady rows (w_cb > 0) skip most of the scan. A
+// cached slot's score there is sb + w_cb * cb(t), and while w_cb * cb was
+// finite at the touch it never falls until the slot is touched again:
+// gap = max(next - t, 1) falls, and each later operation (times size >= 0,
+// over -max(cost, 1e-30) < 0, times w_cb > 0, plus sb) is monotone under
+// round-to-nearest, so the slot's key (order image of the score, touch)
+// never falls either. Any key computed earlier is a lower bound of the key
+// now. Each group of 32 consecutive slots keeps such a bound (a key) in the
+// cell's region of device memory, 0 at the start: a touch, an append, and
+// the last slot moving into a victim's place lower it (atomicMin) with the
+// slot's key at that step, which the staging computes whole where infl
+// stays 0; a removed slot leaves it, still a bound of the rest. An evicting step
+// (warp 0 alone) rescans the group of the least bound, and again while
+// some group's bound lies below the best exact key found; a rescanned
+// group's bound becomes its exact least key. The winner is the full scan's:
+// its key is the least, and keys are distinct. The staging flags a term not
+// finite at the touch (kBad) in these rows too; while a cached slot holds
+// the flag, every step scans in full, as before, and that scan refreshes
+// every group's bound exactly.
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
@@ -144,7 +165,8 @@ constexpr int kSlotWords = 7;        // words a slot (the key takes two)
 constexpr int kByteSlotWords = 8;    // and the whole-byte size
 constexpr int kStageBytes = kChunk * kStageWords * 4;
 constexpr int kWorkWords = 5;        // work counters a cell
-constexpr int kByteWorkWords = 7;    // and victims, fetch-throughs
+constexpr int kByteWorkWords = 8;    // and victims, fetch-throughs, rescans
+constexpr int kGroup = 32;           // slots under one bound (the byte replay)
 constexpr float kBig = 3.4e38f;
 constexpr unsigned kBad = 0x80000000u;   // next-use word: w_cb * cb not finite
 constexpr unsigned kNuMask = 0x7fffffffu;
@@ -163,6 +185,7 @@ constexpr int kChunkDone = 0;   // the chunk is replayed
 constexpr int kScore = 1;       // an evicting step: score your share
 constexpr int kSpill = 2;       // the table must move to device memory
 constexpr int kStatic = 4;      // flag on kScore: compare sb alone
+constexpr int kRefresh = 8;     // flag on kScore: write the groups' bounds
 
 struct Slots {
   unsigned long long* key;   // order_image(sb) << 32 | touch
@@ -199,15 +222,19 @@ __device__ __forceinline__ float cost_belady(int nu, float size, float negcf,
   return nu >= T ? -kBig : __fdiv_rn(__fmul_rn(size, gap), negcf);
 }
 
-// The plain version's raw score of the object in slot s at step tf:
-// (static + w_bel * bel) + w_cb * cb.
-__device__ __forceinline__ float slot_score(const Slots& sl, int s, float tf,
-                                            int T, float w_cb) {
-  const float sb = sl.sb[s];
-  const unsigned nuw = sl.nu[s];
-  const float size = sl.size[s], negcf = sl.negcf[s];
+// The plain version's raw score at step tf of an object whose score part
+// fixed at the touch is sb: (static + w_bel * bel) + w_cb * cb.
+__device__ __forceinline__ float score_of(float sb, unsigned nuw, float size,
+                                          float negcf, float tf, int T,
+                                          float w_cb) {
   return __fadd_rn(
       sb, __fmul_rn(w_cb, cost_belady(int(nuw & kNuMask), size, negcf, tf, T)));
+}
+
+// The raw score of the object in slot s at step tf.
+__device__ __forceinline__ float slot_score(const Slots& sl, int s, float tf,
+                                            int T, float w_cb) {
+  return score_of(sl.sb[s], sl.nu[s], sl.size[s], sl.negcf[s], tf, T, w_cb);
 }
 
 // The part of an object's score fixed at its touch at step tf is
@@ -262,6 +289,65 @@ __device__ __forceinline__ Key score_share(const Slots sl, int u, int first,
                : scan_share<false>(sl, u, first, stride, tf, T, w_cb));
 }
 
+// The byte replay's cost-Belady bounds (see the header): the exact least
+// key of group g's slots below u at step tf, in every lane of the warp.
+__device__ __forceinline__ Key group_min(const Slots sl, int g, int u,
+                                         float tf, int T, float w_cb) {
+  const int s = g * kGroup + (threadIdx.x & 31);
+  Key x = empty_key();
+  if (s < u)
+    x = Key{pack_key(order_image(slot_score(sl, s, tf, T, w_cb)),
+                     unsigned(sl.key[s])),
+            s};
+  return warp_argmin_distinct(x);
+}
+
+// A scoring warp's share of a full scan in a bounded row: groups first,
+// first + stride, ... (the slots the page kernel's shares give the warp),
+// each group's exact least key written as its bound.
+__device__ __forceinline__ Key refresh_share(const Slots sl,
+                                             unsigned long long* bounds,
+                                             int u, int first, int stride,
+                                             float tf, int T, float w_cb) {
+  Key best = empty_key();
+  for (int g = first; g * kGroup < u; g += stride) {
+    const Key m = group_min(sl, g, u, tf, T, w_cb);
+    if ((threadIdx.x & 31) == 0) bounds[g] = m.key;
+    best = min_key(best, m);
+  }
+  __syncwarp();
+  return best;
+}
+
+// An evicting step's least key in a bounded row, by warp 0 alone: the
+// group of the least bound below the best key found so far is rescanned
+// (its bound becomes its exact least key) until no bound lies below it.
+// Adds the slots rescanned to `rescanned`.
+__device__ __forceinline__ Key bounded_min(const Slots sl,
+                                           unsigned long long* bounds, int u,
+                                           float tf, int T, float w_cb,
+                                           long long& rescanned) {
+  const int lane = threadIdx.x & 31;
+  const int groups = (u + kGroup - 1) / kGroup;
+  Key best = empty_key();
+  __syncwarp();   // the lanes' bound updates are visible to every lane
+  for (;;) {
+    Key least = empty_key();   // this lane's least bound, its group
+#pragma unroll 4
+    for (int g = lane; g < groups; g += 32) {
+      const unsigned long long b = bounds[g];
+      if (b < least.key) least = Key{b, g};
+    }
+    least = warp_argmin_distinct(least);
+    if (least.key >= best.key) return best;
+    const Key m = group_min(sl, least.slot, u, tf, T, w_cb);
+    if (lane == 0) bounds[least.slot] = m.key;
+    __syncwarp();
+    best = min_key(best, m);
+    rescanned += min(kGroup, u - least.slot * kGroup);
+  }
+}
+
 // Scoring warps for a table of u slots: one up to `one`, else one for
 // each `per` slots, at least two and at most kWarps.
 __device__ __forceinline__ int warps_for(long long u, int one, int per) {
@@ -303,6 +389,8 @@ struct Params {
   int T, N, P, K;
   int map_shared;            // 1: the map in shared memory
   int slots_shared;          // slots the shared table holds
+  unsigned long long* bounds;   // (C, ceil(N / 32)) the byte replay's group
+                                // bounds, else null
 };
 
 // The cell's replay state. Warp 0 runs the walk in lockstep, every lane on
@@ -315,7 +403,7 @@ struct Cell {
   float infl = 0.0f, dollars = 0.0f;
   long long scored_steps = 0, scored_slots = 0, evict_cycles = 0;
   long long held = 0;    // the byte replay: bytes cached
-  long long victims = 0, fetch_through = 0;
+  long long victims = 0, fetch_through = 0, rescanned = 0;
 };
 
 // The staged chunk, read-only while it is walked.
@@ -331,6 +419,9 @@ struct Stage {
   const float* ab;      // w0*t + w1*f, or sb whole where infl stays 0
   const float* wb;      // w_bel * bel
   const unsigned* img;  // where infl stays 0: order_image(sb), in fc's place
+  const unsigned* whole_img;   // where infl stays 0 in a bounded row: the
+                               // order image of the whole score at the
+                               // touch, in wb's place
 };
 
 // The score part fixed at the touch by request j, and its order image.
@@ -352,13 +443,39 @@ struct Control {
   int event, used, t, global;
 };
 
+// The per-cell constants of the walk.
+struct Row {
+  const float* w;
+  bool gd_active, static_row;
+  bool bounded;            // the byte replay's rows with w_cb > 0
+  int budget, T, nw;
+  long long byte_budget;   // the byte replay's budget
+  unsigned long long* bounds;   // the byte replay's: the cell's group bounds
+  unsigned big_img;
+};
+
+// A bounded row: the key at step t0 + j of the object that request j
+// touches, with score part sb (staged whole where infl stays 0), which
+// lowers its slot's group's bound.
+__device__ __forceinline__ unsigned long long touch_key(const Row& row,
+                                                       const Stage& st,
+                                                       int j, int t0,
+                                                       float sb) {
+  return pack_key(
+      row.gd_active
+          ? order_image(score_of(sb, st.nu[j], __int2float_rn(st.bytes[j]),
+                                 st.negcf[j], __int2float_rn(t0 + j), row.T,
+                                 row.w[5]))
+          : st.whole_img[j],
+      t0 + j);
+}
+
 // Request j of the chunk (t = t0 + j) puts its object in slot s, which
 // held a slot flagged `old_bad` (0 for a new one), and touches it.
 template <bool kBytes>
 __device__ __forceinline__ void place(Cell& c, const Stage& st, int* map,
                                       const Slots& t, int s, int j, int t0,
-                                      unsigned old_bad, const float* w,
-                                      bool gd_active) {
+                                      unsigned old_bad, const Row& row) {
   const int i = st.id[j];
   map[i] = s;
   t.obj[s] = i;
@@ -372,25 +489,26 @@ __device__ __forceinline__ void place(Cell& c, const Stage& st, int* map,
   t.negcf[s] = st.negcf[j];
   c.bad += int(st.nu[j] >> 31) - int(old_bad);
   unsigned img;
-  t.sb[s] = touch_sb(st, j, w, gd_active, c.infl, img);
+  const float sb = touch_sb(st, j, row.w, row.gd_active, c.infl, img);
+  t.sb[s] = sb;
   t.nu[s] = st.nu[j];
   t.key[s] = pack_key(img, t0 + j);
+  if constexpr (kBytes) {   // the byte replay only appends
+    if (row.bounded) {
+      const unsigned long long k = touch_key(row, st, j, t0, sb);
+      if ((threadIdx.x & 31) == 0) atomicMin(row.bounds + s / kGroup, k);
+    }
+  }
 }
-
-// The per-cell constants of the walk.
-struct Row {
-  const float* w;
-  bool gd_active, static_row;
-  int budget, T, nw;
-  long long byte_budget;   // the byte replay's budget
-  unsigned big_img;
-};
 
 // An evicting step at request j of the chunk: the minimum of (score, touch)
 // over the cached objects (the requested one is not among them: a miss),
 // scored by the row's warps. Returns whether the winner is evicted (its
 // score below 3.4e38, or the NaN rule's object 0), with its slot in v and,
 // where it counts (the NaN rule, GreedyDual rows), its score in vscore.
+// The byte replay's bounded rows take the least key from their bounds
+// while no cached slot holds kBad.
+template <bool kBytes>
 __device__ __forceinline__ bool evicting_step(Cell& c, int j, int t0,
                                               int* map, const Slots t,
                                               const Row& row, Control* ctl,
@@ -401,23 +519,37 @@ __device__ __forceinline__ bool evicting_step(Cell& c, int j, int t0,
   const long long reached = clock64();
   ++c.scored_steps;
   c.scored_slots += c.used;
-  const bool sb_alone = row.static_row && c.bad == 0;
-  const int team = 32 * row.nw;
-  if (row.nw > 1) {
-    if (lane == 0) {
-      ctl->event = sb_alone ? kScore | kStatic : kScore;
-      ctl->used = c.used;
-      ctl->t = t0 + j;
+  Key win;
+  float tf;
+  if (kBytes && row.bounded && c.bad == 0) {
+    tf = __int2float_rn(t0 + j);
+    win = bounded_min(t, row.bounds, c.used, tf, row.T, w[5], c.rescanned);
+  } else {
+    if constexpr (kBytes) c.rescanned += c.used;
+    const bool refresh = kBytes && row.bounded;
+    const bool sb_alone = row.static_row && c.bad == 0;
+    const int team = 32 * row.nw;
+    if (row.nw > 1) {
+      if (lane == 0) {
+        ctl->event = sb_alone  ? kScore | kStatic
+                     : refresh ? kScore | kRefresh
+                               : kScore;
+        ctl->used = c.used;
+        ctl->t = t0 + j;
+      }
+      bar_arrive(kGoBarrier, team);   // the helpers wait; warp 0 need not
     }
-    bar_arrive(kGoBarrier, team);   // the helpers wait; warp 0 need not
-  }
-  const float tf = __int2float_rn(t0 + j);
-  Key win = score_share(t, c.used, lane, team, sb_alone, tf, row.T, w[5]);
-  if (row.nw > 1) {
-    bar_sync(kDoneBarrier, team);
-    win = warp_argmin_distinct(lane == 0 ? win
-                               : lane < row.nw ? winners[lane]
-                                               : empty_key());
+    tf = __int2float_rn(t0 + j);
+    win = refresh ? refresh_share(t, row.bounds, c.used, 0, row.nw, tf, row.T,
+                                  w[5])
+                  : score_share(t, c.used, lane, team, sb_alone, tf, row.T,
+                                w[5]);
+    if (row.nw > 1) {
+      bar_sync(kDoneBarrier, team);
+      win = warp_argmin_distinct(lane == 0 ? win
+                                 : lane < row.nw ? winners[lane]
+                                                 : empty_key());
+    }
   }
   bool evict;
   vscore = 0.0f;
@@ -439,9 +571,10 @@ __device__ __forceinline__ bool evicting_step(Cell& c, int j, int t0,
 }
 
 // The byte replay drops the victim in slot v: the table's last slot takes
-// its place, so the table stays dense. Every lane reads before any writes.
+// its place, so the table stays dense (in a bounded row, its key at step tf
+// lowers the bound of v's group). Every lane reads before any writes.
 __device__ __forceinline__ void drop_slot(Cell& c, int* map, const Slots t,
-                                          int v) {
+                                          int v, const Row& row, float tf) {
   const int last = c.used - 1;
   const int gone = t.obj[v], moved = t.obj[last];
   const unsigned gone_nu = t.nu[v];
@@ -461,6 +594,12 @@ __device__ __forceinline__ void drop_slot(Cell& c, int* map, const Slots t,
     t.size[v] = size;
     t.negcf[v] = negcf;
     t.bytes[v] = bytes;
+    if (row.bounded) {
+      const unsigned long long k = pack_key(
+          order_image(score_of(sb, nu, size, negcf, tf, row.T, row.w[5])),
+          unsigned(key));
+      if ((threadIdx.x & 31) == 0) atomicMin(row.bounds + v / kGroup, k);
+    }
   }
   c.bad -= int(gone_nu >> 31);
   c.held -= gone_bytes;
@@ -491,7 +630,7 @@ __device__ __forceinline__ int replay_chunk(Cell& c, int& j, int n, int t0,
     if (c.append) {   // a miss appends (past the budget, too)
       if (c.used == capacity) return kSpill;
       if constexpr (kBytes) c.held += st.bytes[j];
-      place<kBytes>(c, st, map, t, c.used++, j, t0, 0u, w, row.gd_active);
+      place<kBytes>(c, st, map, t, c.used++, j, t0, 0u, row);
       c.peak = max(c.peak, c.used);
       c.append = false;
       ++j;
@@ -521,9 +660,14 @@ __device__ __forceinline__ int replay_chunk(Cell& c, int& j, int n, int t0,
             last ? int(st.nu[r] >> 31) - int(t.nu[s_r] >> 31) : 0);
       if (last) {
         unsigned img;
-        t.sb[s_r] = touch_sb(st, r, w, row.gd_active, c.infl, img);
+        const float sb = touch_sb(st, r, w, row.gd_active, c.infl, img);
+        t.sb[s_r] = sb;
         t.nu[s_r] = st.nu[r];
         t.key[s_r] = pack_key(img, t0 + r);
+        if constexpr (kBytes)
+          if (row.bounded)
+            atomicMin(row.bounds + s_r / kGroup,
+                      touch_key(row, st, r, t0, sb));
       }
       c.hits += h;
       j += h;
@@ -539,12 +683,13 @@ __device__ __forceinline__ int replay_chunk(Cell& c, int& j, int n, int t0,
       const int bytes = st.bytes[j];
       bool admit = bytes <= row.byte_budget;
       while (admit && c.held + bytes > row.byte_budget) {
-        if (!evicting_step(c, j, t0, map, t, row, ctl, winners, v, vscore)) {
+        if (!evicting_step<true>(c, j, t0, map, t, row, ctl, winners, v,
+                                 vscore)) {
           admit = false;
           break;
         }
         if (row.gd_active) c.infl = vscore;
-        drop_slot(c, map, t, v);
+        drop_slot(c, map, t, v, row, __int2float_rn(t0 + j));
         ++c.victims;
       }
       if (admit) {
@@ -558,13 +703,14 @@ __device__ __forceinline__ int replay_chunk(Cell& c, int& j, int n, int t0,
         c.append = true;
         continue;
       }
-      if (!evicting_step(c, j, t0, map, t, row, ctl, winners, v, vscore)) {
+      if (!evicting_step<false>(c, j, t0, map, t, row, ctl, winners, v,
+                                vscore)) {
         c.append = true;   // nothing is evicted
         continue;
       }
       if (row.gd_active) c.infl = vscore;
       map[t.obj[v]] = -1;
-      place<false>(c, st, map, t, v, j, t0, t.nu[v] >> 31, w, row.gd_active);
+      place<false>(c, st, map, t, v, j, t0, t.nu[v] >> 31, row);
       ++j;
     }
   }
@@ -599,8 +745,9 @@ __device__ __forceinline__ void replay_cell(const Params p) {
   float* st_wb = st_ab + kChunk;
   unsigned* st_img = reinterpret_cast<unsigned*>(st_fc);
   int* st_bytes = reinterpret_cast<int*>(st_size);
+  unsigned* st_whole_img = reinterpret_cast<unsigned*>(st_wb);
   const Stage st{st_id, st_nu, st_cost, st_size, st_bytes, st_negcf,
-                 st_cos, st_fc, st_ab, st_wb, st_img};
+                 st_cos, st_fc, st_ab, st_wb, st_img, st_whole_img};
   unsigned char* rest = smem + kStageBytes;
   int* map;
   int* shared_base;
@@ -631,10 +778,13 @@ __device__ __forceinline__ void replay_cell(const Params p) {
   row.w = w;
   row.gd_active = __fadd_rn(w[2], w[3]) > 0.0f;
   row.static_row = w[5] == 0.0f;
-  if constexpr (kBytes)
+  row.bounded = kBytes && w[5] > 0.0f;
+  if constexpr (kBytes) {
     row.byte_budget = p.byte_budgets[k];
-  else
+    row.bounds = p.bounds + (long long)cell * ((N + kGroup - 1) / kGroup);
+  } else {
     row.budget = p.budgets[k];
+  }
   row.T = T;
   row.big_img = order_image(kBig);
   const int one_warp = row.static_row ? kStaticOne : kFullOne;
@@ -645,6 +795,10 @@ __device__ __forceinline__ void replay_cell(const Params p) {
   const float* negcf_row = p.neg_cost_floor + prow;
 
   for (int o = tid; o < N; o += kThreads) map[o] = -1;
+  if constexpr (kBytes) {   // the least key: a bound of any slot
+    if (row.bounded)
+      for (int g = tid; g * kGroup < N; g += kThreads) row.bounds[g] = 0;
+  }
   if (tid == 0) {
     ctl.used = 0;
     ctl.global = 0;
@@ -675,8 +829,13 @@ __device__ __forceinline__ void replay_cell(const Params p) {
       const float negcf = negcf_row[i];
       const float cos = cos_row[i];
       unsigned nuw = unsigned(nu);
-      if (row.static_row)
+      float term = 0.0f;   // a bounded row's w_cb * cb at this step
+      if (row.static_row) {
         nuw |= isfinite(cost_belady(nu, size, negcf, tf, T)) ? 0u : kBad;
+      } else if (row.bounded) {
+        term = __fmul_rn(w[5], cost_belady(nu, size, negcf, tf, T));
+        nuw |= isfinite(term) ? 0u : kBad;
+      }
       flagged |= nuw >> 31;
       const float ab = __fadd_rn(__fmul_rn(w[0], tf), __fmul_rn(w[1], fi));
       const float fc = __fmul_rn(fi, cos);
@@ -695,6 +854,7 @@ __device__ __forceinline__ void replay_cell(const Params p) {
         const float sb = touch_score(w, ab, cos, fc, wb, 0.0f);
         st_ab[r] = sb;
         st_img[r] = order_image(sb);
+        if (row.bounded) st_whole_img[r] = order_image(__fadd_rn(sb, term));
       }
     }
     // a slot can hold kBad only if one did before or the chunk brings one
@@ -715,11 +875,17 @@ __device__ __forceinline__ void replay_cell(const Params p) {
         const int u = ctl.used, first = 32 * warp + lane;
         const float tf = __int2float_rn(ctl.t);
         const bool sb_alone = ev & kStatic;
-        const Key win =
-            ctl.global ? score_share(global_table(), u, first, team,
-                                     sb_alone, tf, T, w[5])
-                       : score_share(shared_table, u, first, team, sb_alone,
-                                     tf, T, w[5]);
+        Key win;
+        if (kBytes && (ev & kRefresh))   // this warp's groups: warp + nw * i
+          win = ctl.global ? refresh_share(global_table(), row.bounds, u, warp,
+                                           row.nw, tf, T, w[5])
+                           : refresh_share(shared_table, row.bounds, u, warp,
+                                           row.nw, tf, T, w[5]);
+        else
+          win = ctl.global ? score_share(global_table(), u, first, team,
+                                         sb_alone, tf, T, w[5])
+                           : score_share(shared_table, u, first, team,
+                                         sb_alone, tf, T, w[5]);
         if (lane == 0) winners[warp] = win;
         bar_arrive(kDoneBarrier, team);
       }
@@ -771,6 +937,7 @@ __device__ __forceinline__ void replay_cell(const Params p) {
     if constexpr (kBytes) {
       out[5] = c.victims;
       out[6] = c.fetch_through;
+      out[7] = c.rescanned;
     }
   }
 }
@@ -813,6 +980,7 @@ int launch(void (*kernel)(const Params), const Params& p, long long cells,
       p.slots_shared < 1 || p.slots_shared > p.N ||
       (!p.map_shared && p.map_global == nullptr) ||
       (p.slots_shared < p.N && p.slots_global == nullptr) ||
+      (p.byte_sizes != nullptr && p.bounds == nullptr) ||
       dynamic_bytes !=
           shared_bytes(p.N, p.map_shared, p.slots_shared, slot_words) ||
       dynamic_bytes > limit)
@@ -868,7 +1036,8 @@ extern "C" int replay_scan_launch(
            static_cast<long long*>(work),
            static_cast<int*>(map_global),
            static_cast<int*>(slots_global),
-           T, N, P, K, map_shared, slots_shared};
+           T, N, P, K, map_shared, slots_shared,
+           nullptr};
   return launch(map_shared ? replay_scan_kernel<true>
                            : replay_scan_kernel<false>,
                 p, (long long)Q * P * K, kSlotWords, dynamic_bytes,
@@ -877,15 +1046,16 @@ extern "C" int replay_scan_launch(
 
 // The byte replay's launch: as replay_scan_launch, with byte_sizes (N,)
 // int32 in place of sizes and byte_budgets (K,) int64 in place of budgets;
-// work (C, 7) int64; slots_global (C, 8 * (N rounded up to even)) int32
-// unless slots_shared == N.
+// work (C, 8) int64; slots_global (C, 8 * (N rounded up to even)) int32
+// unless slots_shared == N; bounds (C, ceil(N / 32)) int64, 8-byte
+// aligned, never read before the kernel writes it.
 extern "C" int replay_bytes_launch(
     const void* ids, const void* nxt, const void* rank, const void* weights,
     const void* costs, const void* c_over_s, const void* neg_cost_floor,
     const void* byte_sizes, const void* byte_budgets, void* dollars,
-    void* hits, void* work, void* map_global, void* slots_global, int T,
-    int N, int Q, int P, int K, int map_shared, int slots_shared,
-    long long dynamic_bytes, void* stream) {
+    void* hits, void* work, void* map_global, void* slots_global,
+    void* bounds, int T, int N, int Q, int P, int K, int map_shared,
+    int slots_shared, long long dynamic_bytes, void* stream) {
   Params p{static_cast<const int*>(ids),
            static_cast<const int*>(nxt),
            static_cast<const int*>(rank),
@@ -902,7 +1072,8 @@ extern "C" int replay_bytes_launch(
            static_cast<long long*>(work),
            static_cast<int*>(map_global),
            static_cast<int*>(slots_global),
-           T, N, P, K, map_shared, slots_shared};
+           T, N, P, K, map_shared, slots_shared,
+           static_cast<unsigned long long*>(bounds)};
   return launch(map_shared ? replay_bytes_kernel<true>
                            : replay_bytes_kernel<false>,
                 p, (long long)Q * P * K, kByteSlotWords, dynamic_bytes,

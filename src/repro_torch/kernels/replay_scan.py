@@ -21,7 +21,7 @@ from . import _build
 
 __all__ = ["replay_scan_cuda", "replay_bytes_cuda", "frequency_rank",
            "plan", "STATIC_WARPS", "FULL_WARPS",
-           "WORK_COLUMNS", "BYTE_WORK_COLUMNS"]
+           "WORK_COLUMNS", "BYTE_WORK_COLUMNS", "BOUND_GROUP"]
 
 CHUNK = 512                       # requests a block stages at once
 # id, next use, cost, size, -cost, c/s, f * c/s, w_t*t + w_f*f (or the whole
@@ -40,9 +40,15 @@ STATIC_WARPS = (1024, 320)
 FULL_WARPS = (128, 128)
 WORK_COLUMNS = ("scored_steps", "slots_scored", "peak_slots", "cycles",
                 "evict_cycles")
-# the byte replay's: also the evictions and the misses fetched through
-# (not admitted: larger than the budget, or nothing below 3.4e38 to evict)
-BYTE_WORK_COLUMNS = WORK_COLUMNS + ("victims", "fetch_through")
+# the byte replay's: also the evictions, the misses fetched through (not
+# admitted: larger than the budget, or nothing below 3.4e38 to evict) and
+# the slots its evicting steps scored (`slots_scored` less those that the
+# cost-Belady rows' group bounds left out)
+BYTE_WORK_COLUMNS = WORK_COLUMNS + ("victims", "fetch_through",
+                                    "rescanned_slots")
+# slots under one lower bound in the byte replay (csrc/replay_scan.cu's
+# kGroup)
+BOUND_GROUP = 32
 
 
 def frequency_rank(ids: np.ndarray) -> np.ndarray:
@@ -76,7 +82,9 @@ def plan(cells: int, num_objects: int, shared_limit: int,
     every region's keys are 8-byte aligned), into which its table moves if
     it outgrows the shared one. A byte cache never holds more than N
     objects either. `shared_bytes`: the dynamic shared memory a block
-    takes.
+    takes. The byte replay's layout also has `bound_words`: each cell's
+    lower bounds of its cost-Belady keys, one 8-byte key for every
+    `BOUND_GROUP` slots of N, in device memory.
     """
     N = num_objects
     words = BYTE_SLOT_WORDS if by_bytes else SLOT_WORDS
@@ -89,12 +97,15 @@ def plan(cells: int, num_objects: int, shared_limit: int,
     if slots_shared < 1:
         raise ValueError(f"replay_scan: {shared_limit} bytes of shared memory "
                          "hold no slot")
-    return dict(map_shared=map_shared, slots_shared=slots_shared,
-                shared_bytes=(STAGE_BYTES + (map_bytes if map_shared else 0)
-                              + 4 * words * slots_shared),
-                map_words=0 if map_shared else cells * N,
-                slot_words=(0 if slots_shared == N
-                            else cells * words * (N + N % 2)))
+    layout = dict(map_shared=map_shared, slots_shared=slots_shared,
+                  shared_bytes=(STAGE_BYTES + (map_bytes if map_shared else 0)
+                                + 4 * words * slots_shared),
+                  map_words=0 if map_shared else cells * N,
+                  slot_words=(0 if slots_shared == N
+                              else cells * words * (N + N % 2)))
+    if by_bytes:
+        layout["bound_words"] = cells * 2 * -(-N // BOUND_GROUP)
+    return layout
 
 
 def _check(weights, ids, nxt, rank, costs, sizes, budgets,
@@ -154,14 +165,18 @@ def _launch(weights, ids, nxt, rank, costs, sizes, budgets,
                             device=dev)
         slots_g = torch.empty(layout["slot_words"], dtype=torch.int32,
                               device=dev)
+        regions = [map_g.data_ptr() if map_g.numel() else None,
+                   slots_g.data_ptr() if slots_g.numel() else None]
+        if by_bytes:
+            bounds = torch.empty(layout["bound_words"], dtype=torch.int32,
+                                 device=dev)
+            regions.append(bounds.data_ptr())
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(
             ids.data_ptr(), nxt.data_ptr(), rank.data_ptr(),
             weights.data_ptr(), costs.data_ptr(), c_over_s.data_ptr(),
             neg_cost_floor.data_ptr(), sizes.data_ptr(), budgets.data_ptr(),
-            dollars.data_ptr(), hits.data_ptr(), work.data_ptr(),
-            map_g.data_ptr() if map_g.numel() else None,
-            slots_g.data_ptr() if slots_g.numel() else None,
+            dollars.data_ptr(), hits.data_ptr(), work.data_ptr(), *regions,
             T, N, Q, P, K, int(layout["map_shared"]), layout["slots_shared"],
             layout["shared_bytes"], stream)
     if err != 0:
@@ -209,7 +224,7 @@ def replay_bytes_cuda(weights: torch.Tensor, ids: torch.Tensor,
     budgets (K,) int64 in bytes (>= 0). Returns dollars (Q, P, K) float32
     and hits (Q, P, K) int32, bit-equal to `_replay(use_kernel=False)` on
     the same inputs (its byte replay, which these integer sizes select),
-    and work (Q, P, K, 7) int64, columns `BYTE_WORK_COLUMNS`. Launches one
+    and work (Q, P, K, 8) int64, columns `BYTE_WORK_COLUMNS`. Launches one
     kernel on the current stream, does not synchronise, and raises if the
     launch is refused.
     """

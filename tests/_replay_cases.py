@@ -16,6 +16,9 @@ from repro_torch.kernels.replay_scan import FULL_WARPS, STATIC_WARPS
 POLICIES = ["lru", "lfu", "gds", "gdsf", "belady", "cost_belady"]
 MIXED = np.array([0.5, 0.25, 1.0, 0.75, 0.125, 2.0], np.float32)
 REVERSED_BELADY = np.array([0, 0, 0, 0, -1.0, 0], np.float32)
+# the byte grids' ninth row: w_cb = -1, where the byte kernel's cost-Belady
+# bounds (w_cb > 0 only) stay off
+REVERSED_COST_BELADY = np.array([0, 0, 0, 0, 0, -1.0], np.float32)
 # rows whose scores are signed zeros: every weight -0.0 but w_bel (sb is
 # -0.0), w_gd = w_cb = -0.0 (sb is +0.0), and GreedyDual-Size with w_cb = -0.0
 # (infl takes the victims' signed zeros)
@@ -155,14 +158,22 @@ def make(name: str, seed: int = 0) -> dict:
 
 
 # The byte replay's grids (`budget_unit="bytes"`): whole-byte sizes, the
-# same weight rows, two price vectors, and byte budgets that reach its
-# edges. Shared by `test_torch_replay_bytes.py` and the card's tests.
-BYTE_CASES = ["pareto", "multi_victim", "ties", "unit"]
+# page grids' weight rows and a reversed cost-Belady, two price vectors,
+# and byte budgets that reach its edges. Shared by
+# `test_torch_replay_bytes.py` and the card's tests.
+BYTE_CASES = ["pareto", "multi_victim", "ties", "unit", "zero_cost"]
+
+
+def byte_weights() -> np.ndarray:
+    """The six policies, the mixed row, the reversed Belady (row 7) and the
+    reversed cost-Belady (row 8)."""
+    return np.concatenate([weights(), REVERSED_COST_BELADY[None]])
 
 
 def make_bytes(name: str, seed: int = 0) -> dict:
     """One byte case's inputs: weights (Q, 6), ids (T,), costs (P, N),
-    sizes (N,) whole bytes (float64), budgets (K,) int64 bytes.
+    sizes (N,) whole bytes (float64), budgets (K,) int64 bytes. Every case
+    takes `byte_weights()` but `zero_cost`.
 
     pareto:       Pareto sizes as the CDN arm's (a few objects larger than
                   the small budgets, which are fetched through), costs from
@@ -175,9 +186,18 @@ def make_bytes(name: str, seed: int = 0) -> dict:
     ties:         two sizes and unit costs: scores tie, the touch decides.
     unit:         every size 1, budgets 1, 7 and N pages' worth: the page
                   replay's grid, which the byte replay must repeat.
+    zero_cost:    the second price vector bills a quarter of the objects
+                  nothing (the operator's own origin), so cost-Belady's
+                  term, floored at 1e-30, overflows to -inf at the touch of
+                  a large one whose next use is far (and is finite when it
+                  is near): its row scans in full while such a slot is
+                  cached and goes back to its group bounds once none is.
+                  The rows with w_cb = 0 would score those objects NaN (0 *
+                  -inf), which the plain reference does not replay, so this
+                  case takes the rows with w_cb != 0 alone.
     """
     rng = np.random.default_rng([100 + BYTE_CASES.index(name), seed])
-    w = weights()
+    w = byte_weights()
     if name == "pareto":
         T, N = 1500, 200
         ids = rng.integers(0, N, T)
@@ -204,6 +224,18 @@ def make_bytes(name: str, seed: int = 0) -> dict:
         sizes = rng.choice([3.0, 5.0], N)
         cm = np.ones((2, N))
         budgets = np.array([4, 11, 40])
+    elif name == "zero_cost":
+        T, N = 1200, 100
+        ids = rng.integers(0, N, T)
+        sizes = np.ceil(rng.lognormal(8.0, 1.5, N))
+        free = rng.choice(N, N // 4, replace=False)
+        # size * gap passes 3.4e8 (cb = -inf at cost 0) from gaps of 43-170
+        sizes[free] = rng.integers(2_000_000, 8_000_000, len(free))
+        cm = np.stack([0.4e-6 + sizes * 0.09e-9] * 2)
+        cm[1, free] = 0.0
+        w = w[w[:, 5] != 0]
+        total = sizes.sum()
+        budgets = np.array([total // 20, total // 5, total // 2])
     else:
         T, N = 500, 40
         ids = rng.integers(0, N, T)

@@ -15,7 +15,7 @@ import torch
 from repro_torch.core import carry
 from repro_torch.core import (POLICY_WEIGHTS, PRICE_VECTORS, cost_foo,
                               miss_costs, sweep_torch, zipf_trace)
-from repro_torch.core.trace import next_use_indices
+from repro_torch.core.trace import next_use_indices, wiki_cdn_like
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.evict_argmin import evict_argmin_cuda
 from repro_torch.kernels.interval_occupancy import (error_chain,
@@ -509,14 +509,14 @@ def _most_resident(sizes, budget) -> int:
                                side="right"))
 
 
-def _bytes_against_reference(c: dict, runs: int = 2):
-    """The byte kernel's grid `runs` times against the plain reference:
-    dollars' bits, hits, victims and fetch-throughs, the counts repeating
-    and no cell's table past the most objects its budget holds. Returns
-    the last run's work."""
+def _bytes_against_reference(c: dict, runs: int = 2, plain: str = "cpu"):
+    """The byte kernel's grid `runs` times against the plain reference and
+    the plain step loop on `plain`: dollars' bits, hits, victims and
+    fetch-throughs, the counts repeating and no cell's table past the most
+    objects its budget holds. Returns the last run's work."""
     _, _, victims, fetched, _ = replay_bytes_ref.replay_grid(
         c["ids"], c["costs"], c["sizes"], c["weights"], c["budgets"])
-    want_d, want_h = _bytes_sweep(c, "cpu")
+    want_d, want_h = _bytes_sweep(c, plain, use_kernel=False)
     works = []
     for _ in range(runs):
         prof = {}
@@ -533,6 +533,11 @@ def _bytes_against_reference(c: dict, runs: int = 2):
         # every victim is a scored step's; the clock's columns are times
         assert (work[..., 5] <= work[..., 0]).all()
         assert (work[..., 4] <= work[..., 3]).all()
+        # the bounds leave slots out only in rows with w_cb > 0
+        rescanned, scored = work[..., 7], work[..., 1]
+        assert (rescanned <= scored).all()
+        off = ~(np.asarray(c["weights"])[:, 5] > 0)
+        np.testing.assert_array_equal(rescanned[off], scored[off])
         works.append(work)
     for work in works[1:]:
         np.testing.assert_array_equal(work[..., :3], works[0][..., :3])
@@ -577,6 +582,33 @@ def test_replay_bytes_table_in_device_memory(cuda):
     assert int(work[..., 0, 2].max()) > layout["slots_shared"]
     assert int(work[..., 1, 2].max()) <= layout["slots_shared"]
     assert (work[..., 0, 5] > 0).all()
+
+
+def test_replay_bytes_bounds_on_spilled_cost_belady_tables(cuda):
+    """wiki_cdn_like at 2 and 4 % of its catalog's bytes, 60,000 objects:
+    cost-Belady's table outgrows the shared slots at 4 %, and its many
+    one-hit objects tie at -3.4e38, told apart by their touches. Its
+    evicting steps score fewer slots than they consider, from the group
+    bounds, and the grid keeps its bits; LRU's score them all. The plain
+    step loop runs on the card (it equals the CPU's, which takes minutes
+    at 100,000 requests)."""
+    tr = wiki_cdn_like(n_objects=60_000, n_requests=100_000, seed=3)
+    sizes = np.ceil(tr.sizes)
+    rows = ["lru", "cost_belady"]
+    c = dict(weights=stack_policy_weights(rows), ids=tr.ids,
+             costs=miss_costs(sizes, PRICE_VECTORS["s3_internet"])[None],
+             sizes=sizes, budgets=np.array([int(0.02 * sizes.sum()),
+                                            int(0.04 * sizes.sum())]))
+    assert (next_use_indices(tr.ids) >= len(tr.ids)).mean() > 0.3
+    layout = replay_scan_module.plan(
+        len(rows) * 2, 60_000, _build.library().replay_bytes_shared_limit(),
+        by_bytes=True)
+    work = _bytes_against_reference(c, runs=1, plain="cuda")[:, 0]
+    cb = rows.index("cost_belady")
+    spilled = work[cb, :, 2] > layout["slots_shared"]
+    assert spilled[1]
+    assert (work[cb, spilled, 7] < work[cb, spilled, 1]).all()
+    np.testing.assert_array_equal(work[:cb, :, 7], work[:cb, :, 1])
 
 
 def test_replay_bytes_unit_sizes_equal_page_kernel(cuda):

@@ -31,7 +31,8 @@ from repro.core.policies_jax import sweep_jax
 from repro.core.trace import next_use_indices
 from repro_torch.core import policies_torch as pt
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.replay_scan import (CHUNK, SLOT_WORDS, STAGE_BYTES,
+from repro_torch.kernels.replay_scan import (BOUND_GROUP, BYTE_WORK_COLUMNS,
+                                             CHUNK, SLOT_WORDS, STAGE_BYTES,
                                              FULL_WARPS, STATIC_WARPS,
                                              frequency_rank,
                                              plan, replay_scan_cuda)
@@ -354,6 +355,9 @@ def test_layout_constants_mirror_the_kernel_source():
         == STATIC_WARPS
     assert ints(r"constexpr int kFullOne = (\d+), kFullPer = (\d+);") == \
         FULL_WARPS
+    assert ints(r"constexpr int kGroup = (\d+);") == (BOUND_GROUP,)
+    assert ints(r"constexpr int kByteWorkWords = (\d+);") == (
+        len(BYTE_WORK_COLUMNS),)
 
 
 def test_warp_budgets_straddle_the_thresholds():
