@@ -21,9 +21,10 @@ toolkit. Its phases, in order, each printing one JSON line:
 * `costfoo_cdn`: bracket the dollar-optimum of a 200k-request
   variable-size CDN trace with cost-FOO, its rounded schedule checked on
   the card, the bracket equal to a CPU run's.
-* `replay_full`, `replay_profile`: the full-size sweep (200k requests, 20k
-  objects, 96 cells) through `next_use` and `replay_scan`, bit-equal to the
-  plain step loop on the card, and where its time goes.
+* `replay_full`: the full-size sweep (200k requests, 20k objects, 96
+  cells) through `next_use` and `replay_scan`, one launch each, bit-equal
+  to the plain step loop on the card, its LRU and Belady hits equal to the
+  host's replay.
 * `serve`, `serve_numerics`, `serve_profile`: phi4-mini-3.8b at full width
   through the egress-billed, governed engine, its bill held bit for bit
   against a host-only replay; decode against prefill and the card against
@@ -62,7 +63,9 @@ toolkit. Its phases, in order, each printing one JSON line:
   dry-run cell (fake tensors, the step counter) against its analytic
   FLOPs and train_dense's measured peak, and a production cell on the
   16x16 mesh of 256 fake ranks with its H100 roofline terms.
-* the kernel line: every kernel with its time beside its bound.
+* the kernel line: each kernel at the shapes no benchmark cell runs
+  (`evict_argmin`, `next_use` at 2^22 and 2^26 ids, the occupancy scans)
+  with its time beside its plain version and its bound.
 
 It then prints the `nvidia-smi` name and power limit and last
 `{"ok": true, "device": {...}}`. Any failed check raises and exits
@@ -141,8 +144,7 @@ from repro_torch.kernels.interval_occupancy import (  # noqa: E402
 from repro_torch.kernels.next_use import (digit_passes,  # noqa: E402
                                           next_use_cuda, plan)
 from repro_torch.kernels.replay_scan import (  # noqa: E402
-    BYTE_WORK_COLUMNS, WORK_COLUMNS, frequency_rank, replay_bytes_cuda,
-    replay_scan_cuda)
+    BYTE_WORK_COLUMNS, replay_scan_cuda)
 from repro_torch.kernels import replay_scan as replay_scan_module  # noqa: E402
 import _replay_cases  # noqa: E402  (tests/: the replay kernel's edge cases)
 
@@ -169,6 +171,9 @@ SCAN_BYTES_T = 2**26        # 256 MiB an array: far past the 50 MB L2
 NU_BYTES_T, NU_BYTES_N = 2**26, 2**22   # next_use's large timing shape
 NO_LAUNCHES = {name: 0 for name in ops.KERNELS}
 
+# the kernels the kernel line times: those that no benchmark cell runs at
+# these shapes (the cells time replay_scan, replay_bytes and next_use at
+# 200k requests)
 KERNEL_INFO = {
     "evict_argmin": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/evict_argmin.cu",
@@ -186,18 +191,6 @@ KERNEL_INFO = {
         route="cuda", source="src/repro_torch/kernels/csrc/occupancy_scan.cu",
         replaces="src/repro/kernels/interval_occupancy.py:50",
         replaces_function="interval_occupancy_pallas"),
-    "replay_scan": dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/replay_scan.cu",
-        replaces="src/repro/core/policies_jax.py:97",
-        replaces_function="_simulate's lax.scan (with evict_argmin_pallas "
-                          "inside), vmapped by sweep_jax "
-                          "(src/repro/core/policies_jax.py:233)"),
-    "replay_bytes": dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/replay_scan.cu",
-        replaces="src/repro/core/policies.py:84",
-        replaces_function="_simulate_priority and _simulate_oracle (host "
-                          "only: the JAX package has no byte replay on the "
-                          "device)"),
 }
 TOLERANCE = {
     "evict_argmin": "exact",
@@ -208,15 +201,6 @@ TOLERANCE = {
                           "one float32 rounding of occ - zcap",
 }
 TOLERANCE["interval_occupancy"] = TOLERANCE["occupancy_feasible"]
-TOLERANCE["replay_scan"] = "exact: dollars and hits bit-equal"
-TOLERANCE["replay_bytes"] = TOLERANCE["replay_scan"]
-SCORE_OPS = 7   # float32 operations a scored slot: next use to float, the
-                # gap, its max with 1, size * gap, the quotient, w_cb's
-                # product, the sum (the compare not counted)
-STATIC_OPS = 2  # a slot on replay_scan's static path: its stored 64-bit key's
-                # compare, two 32-bit integer operations (at the float32
-                # rate: the data sheet gives no int32 rate; a lower bound)
-
 
 
 def emit(phase: str, **fields) -> None:
@@ -523,14 +507,14 @@ def next_use_checks(seed: int, rng, dev, errs: dict, cases: list) -> dict:
 
 
 def replay_inputs(weights, ids, costs, sizes, budgets, dev) -> dict:
-    """replay_scan's arguments on the card, next(t) from the plain version
-    (no launch is counted outside a path)."""
+    """replay_scan's arguments on the card, next(t) and the rank from the
+    plain versions (no launch is counted outside a path)."""
     ids_t = torch.tensor(np.asarray(ids, np.int32), device=dev)
     costs_t = torch.tensor(np.asarray(costs, np.float32), device=dev)
     return dict(
         weights=torch.tensor(np.asarray(weights, np.float32), device=dev),
         ids=ids_t, nxt=ref.next_use_ref(ids_t, costs_t.shape[1]),
-        rank=torch.tensor(frequency_rank(ids), device=dev), costs=costs_t,
+        rank=ref.frequency_rank_ref(ids_t), costs=costs_t,
         sizes=torch.tensor(np.asarray(sizes, np.float32), device=dev),
         budgets=torch.tensor(np.asarray(budgets, np.int32), device=dev))
 
@@ -603,7 +587,8 @@ def replay_scan_checks(seed: int, dev, errs: dict, cases: list) -> dict:
 
 def phase_kernel_checks(seed: int, dev) -> dict:
     rng = np.random.default_rng(seed)
-    errs = {name: 0.0 for name in ops.KERNELS}
+    # replay_bytes is checked in replay_parity (`bytes_parity`)
+    errs = {name: 0.0 for name in ops.KERNELS if name != "replay_bytes"}
     cases = []
 
     def argmin_case(label, scores, touch, mask):
@@ -736,7 +721,7 @@ def bytes_parity(seed: int) -> dict:
     check(int(multi.sum()) > 0, "no miss evicted more than one victim")
     check(int(col["peak_slots"].max()) > slots_shared,
           f"no byte table outgrew the {slots_shared} shared slots")
-    return dict(trace=tr, sizes=sizes, cm=cm, budgets=budgets,
+    return dict(trace=tr, budgets=budgets,
                 execute_s=prof["execute_s"], plain_s=plain_s,
                 launches=launches, work=work, slots_shared=slots_shared,
                 multi=multi[0, 0].tolist(),
@@ -801,6 +786,7 @@ def phase_replay_parity(seed: int, dev) -> tuple:
                     budgets=byte["budgets"].tolist(),
                     budget_shares=list(BYTE_PARITY_SHARES),
                     grid=list(byte["work"].shape[:3]), bit_equal=True,
+                    max_abs_err=byte["max_abs_err"],
                     execute_s=dict(replay_bytes=byte["execute_s"],
                                    cuda_plain=byte["plain_s"]),
                     launches=byte["launches"],
@@ -810,7 +796,7 @@ def phase_replay_parity(seed: int, dev) -> tuple:
                     peak_slots=int(col["peak_slots"].max()),
                     slots_shared=byte["slots_shared"]))
     return (tr, cm, ref_grid, launches["step_loop_evict_argmin"],
-            secs["cuda_plain"], byte)
+            byte["launches"])
 
 
 def phase_regret(tr: Trace, cm: np.ndarray, grid: np.ndarray) -> None:
@@ -868,8 +854,9 @@ def phase_costfoo_cdn(seed: int, dev) -> dict:
     benchmarks/bench_costfoo.py (`cdn_vs_prepr`), its rounded schedule
     checked on the card through occupancy_feasible, against the same run
     with the check on the CPU. The check's arguments are captured from the
-    card run: they feed the infeasible-schedule check and the kernel line's
-    timing at the path's shape."""
+    card run: they feed the scan's rounding-bound check, the
+    infeasible-schedule check and the kernel line's timing at the path's
+    shape."""
     tr = wiki_cdn_like(n_objects=60_000, n_requests=200_000, seed=seed)
     costs = miss_costs(tr.sizes, PRICE_VECTORS["gcs_internet"])
     B = float(np.quantile(tr.sizes, 0.9) * 400)
@@ -939,10 +926,10 @@ def phase_replay_full(seed: int) -> dict:
     """The main path at full size: the 96-cell sweep of 200k requests over
     20k objects through next_use and replay_scan, one launch each, its hits
     held against the host heap replay; then the plain step loop on the card
-    once (the kernel's plain version at this shape, bit-equal and timed)."""
+    once, which all 96 cells must equal bit for bit (the kernel's plain
+    version at the main path's shape)."""
     tr = twemcache_like(n_objects=20000, n_requests=200_000, seed=seed)
     cm = price_matrix(tr)
-    T = tr.num_requests
     kw = dict(num_objects=tr.num_objects, sizes=tr.sizes, return_hits=True)
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -968,98 +955,17 @@ def phase_replay_full(seed: int) -> dict:
               f"(s3_internet, B={B})")
         host[pol] = dict(hits=r.hits, dollars=r.dollars,
                          rel_dollar_gap=float(dollars[q, p, k]) / r.dollars - 1)
-    plain_prof = {}
     plain_d, plain_h = sweep_torch(POLICIES, tr.ids, cm, FULL_BUDGETS,
-                                   use_kernel=False, profile=plain_prof, **kw)
+                                   use_kernel=False, **kw)
     check(np.array_equal(plain_d.view(np.int32), dollars.view(np.int32))
           and np.array_equal(plain_h, hits),
           "replay_scan's full grid differs from the plain step loop's")
-    steps_per_s = T / prof["execute_s"]
     emit("replay_full", trace="twemcache_like", n_objects=tr.num_objects,
-         n_requests=T, cells=prof["cells"], budgets=FULL_BUDGETS.tolist(),
-         compile_s=prof["compile_s"], execute_s=prof["execute_s"],
-         steps_per_s=steps_per_s, cell_steps_per_s=steps_per_s * prof["cells"],
+         n_requests=tr.num_requests, cells=prof["cells"],
+         budgets=FULL_BUDGETS.tolist(), compile_s=prof["compile_s"],
          launches=launches, peak_device_gib=peak_gib,
-         host_check_s3_internet_B640=host,
-         plain_step_loop_execute_s=plain_prof["execute_s"],
-         plain_bit_equal=True)
-    return dict(launches=launches, trace=tr, cm=cm,
-                execute_s=prof["execute_s"],
-                plain_execute_s=plain_prof["execute_s"])
-
-
-def phase_replay_profile(full: dict, tries: int = 3) -> dict:
-    """Where replay_full's time goes. A torch.profiler trace of the full
-    sweep after a warm-up call (the profiler's schedule records a warm-up
-    round first and `profiler_primer` opens the recorded one, as in
-    `device_time`), retaken when it lost the replay_scan kernel's event:
-    the device time of each kernel and copy, against replay_full's
-    unprofiled execute_s for the device's busy share, and the host time of
-    each of `sweep_torch`'s own spans (`repro_torch.sweep.*`, on the
-    trace's clock) in the recorded call. The recorded call's
-    `profile["work"]` gives each cell's cycles (`replay_cells`).
-    Returns the kernel's device time, which the kernel line's full-shape
-    row takes (`device_time` of the kernel alone, late in the script, came
-    back with no event in every try), and those counters."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-    tr, cm = full["trace"], full["cm"]
-    N = tr.num_objects
-
-    def sweep(counters=None):
-        sweep_torch(POLICIES, tr.ids, cm, FULL_BUDGETS, num_objects=N,
-                    sizes=tr.sizes, profile=counters)
-
-    sweep()
-    for attempt in range(1, tries + 1):
-        traces, walls, counters = [], [], {}
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                     on_trace_ready=lambda p: traces.append(
-                         p.key_averages())) as prof:
-            for rnd in range(2):        # warm-up round, recorded round
-                if rnd:
-                    profiler_primer()
-                t0 = time.perf_counter()
-                sweep(counters)
-                walls.append(time.perf_counter() - t0)
-                prof.step()
-        events = traces[-1] if traces else []
-        on_card = [e for e in events
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0
-                   and not e.key.startswith("ProfilerStep")
-                   and not primer_event(e.key)]
-        scan = [e for e in on_card if "replay_scan" in e.key]
-        if len(scan) == 1 and scan[0].count == 1:
-            break
-    check(len(scan) == 1 and scan[0].count == 1,
-          f"the profiler lost replay_scan's event in {tries} tries")
-    device_ms = {}
-    for e in on_card:
-        name = e.key.replace("(anonymous namespace)::", "")
-        name = name.split("(")[0].removeprefix("void ").strip()[-80:]
-        device_ms[name] = (device_ms.get(name, 0.0)
-                           + e.self_device_time_total / 1e3)
-    kernel_ms = scan[0].self_device_time_total / 1e3
-    spans_ms = {e.key: e.cpu_time_total / 1e3 for e in events
-                if e.key.startswith("repro_torch.sweep")
-                and e.device_type == DeviceType.CPU}
-    total_ms = sum(device_ms.values())
-    cells = replay_cells(counters["work"], FULL_BUDGETS, tr.num_requests)
-    emit("replay_profile", n_requests=tr.num_requests, cells=counters["cells"],
-         execute_s_unprofiled=full["execute_s"], profiled_wall_s=walls[-1],
-         tries=attempt, device_ms=device_ms, device_ms_total=total_ms,
-         replay_scan_device_ms=kernel_ms,
-         device_busy_share=total_ms / 1e3 / full["execute_s"],
-         replay_scan_share=kernel_ms / 1e3 / full["execute_s"],
-         spans_ms=spans_ms,
-         spans_note="sweep_torch's own spans in the recorded call: "
-                    "repro_torch.sweep holds the others",
-         cell_cycles={k: v for k, v in cells.items() if k != "cycles_all"})
-    return dict(ms=kernel_ms, kernels={"replay_scan_kernel": kernel_ms},
-                work=counters["work"])
+         host_check_s3_internet_B640=host, plain_bit_equal=True)
+    return dict(launches=launches, trace=tr)
 
 
 L2_FLUSH_BYTES = 256 << 20   # five times the H100's 50 MB L2
@@ -1161,222 +1067,11 @@ def device_time(fn, reps: int = 20, flush: L2Flush | None = None,
     return dict(ms=sum(by_name.values()), kernels=by_name)
 
 
-def replay_cells(work, budgets, T: int) -> dict:
-    """Where one replay_scan launch over the (POLICIES x PRICES x budgets)
-    grid spent its cycles, from its work counters (a tensor, or the numpy
-    `profile["work"]` of a sweep): the slowest and the
-    median cell by clock64() cycles, each with its evicting steps, the
-    cycles from reaching them to their victims (share and per step), and
-    the rest (the walk, staging and chunk barriers) per request."""
-    if isinstance(work, torch.Tensor):
-        work = work.cpu().numpy()
-    w = np.asarray(work).reshape(-1, len(WORK_COLUMNS))
-    col = {name: w[:, j] for j, name in enumerate(WORK_COLUMNS)}
-    shape = (len(POLICIES), len(PRICES), len(budgets))
-    order = np.argsort(col["cycles"], kind="stable")
-
-    def cell(c: int) -> dict:
-        q, p, k = np.unravel_index(c, shape)
-        cycles, evict = int(col["cycles"][c]), int(col["evict_cycles"][c])
-        steps = int(col["scored_steps"][c])
-        return dict(policy=POLICIES[q], price=PRICES[p],
-                    budget=int(budgets[k]), cycles=cycles,
-                    evicting_steps=steps, evict_cycles=evict,
-                    evict_share=evict / cycles,
-                    cycles_per_evicting_step=evict / steps if steps else None,
-                    other_cycles_per_request=(cycles - evict) / T)
-
-    return dict(slowest=cell(int(order[-1])),
-                median=cell(int(order[len(order) // 2])),
-                cycles_all=col["cycles"].tolist())
-
-
-class SmClock:
-    """The SM clock sampled beside a timing window: `nvidia-smi
-    --query-gpu=clocks.sm` every 100 ms while the block runs, stopped when
-    it ends. `mhz` holds the samples."""
-
-    def __enter__(self):
-        self.proc = subprocess.Popen(
-            ["nvidia-smi", "--query-gpu=clocks.sm",
-             "--format=csv,noheader,nounits", "-lms", "100"],
-            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-        return self
-
-    def __exit__(self, *exc):
-        self.proc.terminate()
-        out, _ = self.proc.communicate(timeout=30)
-        self.mhz = [int(x) for x in out.split() if x.strip().isdigit()]
-        return False
-
-
-def static_path_slots(x: dict, work: torch.Tensor) -> int:
-    """The slots this run's evicting steps compare by their stored key alone
-    (csrc/replay_scan.cu's static path): every slot of the cells whose row
-    has w_cb = 0 in a price row where each request's cost-Belady term is
-    finite at its own step, so that no cached slot is ever flagged. Cells of
-    a price row with a flagged request count as scored in full."""
-    ids, nu = x["ids"].long(), x["nxt"]
-    T = ids.shape[0]
-    t = torch.arange(T, device=ids.device).float()
-    gap = torch.clamp_min(nu.float() - t, 1.0)
-    negcf = -torch.clamp_min(x["costs"][:, ids], 1e-30)
-    cb = torch.where(nu >= T, -3.4e38, x["sizes"][ids] * gap / negcf)
-    static = ((x["weights"][:, 5] == 0)[:, None, None]
-              & torch.isfinite(cb).all(dim=1)[None, :, None])
-    return int((work[..., 1] * static).sum())
-
-
-def replay_scan_rows(dev, errs: dict, launches: dict, shapes: list) -> list:
-    """replay_scan's rows at the parity and the full shape: the kernel
-    alone on inputs already on the card (window `ms` over back-to-back
-    calls, `device_ms` from the profiler: `device_time` at the parity
-    shape, the main path's own trace in replay_profile at the full one,
-    where `device_time` came back empty), beside the plain step loop's
-    execute_s at the same shape (`plain_ms`: one call in replay_parity or
-    replay_full, host clock, synchronised; its device time is not
-    profiled: tens of thousands of steps of ~46 ops). The bound counts
-    this data's work: each input read once and each output written once,
-    and SCORE_OPS float32 operations a scored slot, from the kernel's own
-    counters, against 67 TFLOP/s; `bound_path_ms` counts the static path's
-    slots (`static_path_slots`) at STATIC_OPS each and the rest at
-    SCORE_OPS. `cells`: the slowest and the median
-    cell's cycles (`replay_cells`, at the full shape from replay_profile's
-    sweep), with the SM clock sampled during the window."""
-    rows = []
-    for label, tr, cm, budgets, plain_s, reps, on_card in shapes:
-        x = replay_inputs(stack_policy_weights(POLICIES), tr.ids, cm,
-                          tr.sizes, budgets, dev)
-
-        def kernel(x=x):
-            return replay_scan_cuda(**x)
-
-        if on_card is None:
-            _, _, work = kernel()
-        else:       # the counters of replay_profile's recorded sweep
-            work = torch.as_tensor(on_card["work"], device=dev)
-        Q, (P, N), K, T = len(POLICIES), cm.shape, len(budgets), \
-            tr.num_requests
-        C = Q * P * K
-        nbytes = 3 * 4 * T + 24 * Q + 4 * P * N + 4 * N + 4 * K + C * 32
-        slots = int(work[..., 1].sum())
-        flops = SCORE_OPS * slots
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / F32_PEAK_FLOPS * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        static = static_path_slots(x, work)
-        path_ops = STATIC_OPS * static + SCORE_OPS * (slots - static)
-        bound_path_ms = max(bytes_ms, path_ops / F32_PEAK_FLOPS * 1e3)
-        device_note = "replay_profile's trace of the sweep (the kernel alone)"
-        if on_card is None:
-            on_card = device_time(kernel, reps=reps)
-            device_note = "device_time: the kernel and the wrapper's ops"
-        with SmClock() as clock:
-            window_ms = time_ms(kernel, reps=reps, rounds=5)
-        rows.append(dict(
-            name="replay_scan", **KERNEL_INFO["replay_scan"],
-            launches=launches["replay_scan"], max_abs_err=errs["replay_scan"],
-            tolerance=TOLERANCE["replay_scan"],
-            ms=window_ms, plain_ms=plain_s * 1e3,
-            plain_note="the plain step loop's execute_s (next(t), the loop, "
-                       "the copy back) in " + label,
-            device_ms=on_card["ms"], device_kernels=on_card["kernels"],
-            device_note=device_note, plain_device_ms="not measured",
-            l2="warm",
-            bound_ms=bound_ms,
-            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-            bound_share=(bound_ms / on_card["ms"] if on_card["kernels"]
-                         else "not measured"),
-            bound_note=f"max({nbytes} bytes over 3.35 TB/s, {flops} float32 "
-                       f"operations ({slots} slots scored x {SCORE_OPS}) "
-                       "over 67 TFLOP/s)",
-            bound_path_ms=bound_path_ms,
-            bound_path_share=(bound_path_ms / on_card["ms"]
-                              if on_card["kernels"] else "not measured"),
-            bound_path_note=f"max(the bytes, {path_ops} operations: {static} "
-                            f"static-path slots x {STATIC_OPS} and "
-                            f"{slots - static} x {SCORE_OPS})",
-            library_ms=None, library_call=None,
-            library_note="none: no single PyTorch call replays a cache",
-            shape=dict(T=T, N=N, cells=C, budgets=[int(b) for b in budgets],
-                       data=f"twemcache_like, {label}",
-                       scored_steps=int(work[..., 0].sum()),
-                       slots_scored=slots,
-                       peak_slots=int(work[..., 2].max())),
-            cells={k: v for k, v in replay_cells(work, budgets, T).items()
-                   if k != "cycles_all"},
-            sm_clock_mhz=clock.mhz))
-    return rows
-
-
-def replay_bytes_row(dev, errs: dict, launches: dict, byte: dict) -> dict:
-    """replay_bytes's row at the byte parity grid (`bytes_parity`): the
-    kernel alone on inputs already on the card (window `ms` over
-    back-to-back calls, `device_ms` from `device_time`), beside the plain
-    step loop's execute_s there. The bound counts this data's work, as
-    replay_scan's: each input read once (int32 sizes, int64 budgets) and
-    each output written once (dollars, hits, eight counters a cell), and
-    SCORE_OPS float32 operations a scored slot, from this run's counters,
-    against 67 TFLOP/s."""
-    tr, cm, budgets = byte["trace"], byte["cm"], byte["budgets"]
-    x = replay_inputs(stack_policy_weights(POLICIES), tr.ids, cm,
-                      byte["sizes"], budgets, dev)
-    # whole bytes as int32 (their float32 values can round)
-    x["sizes"] = torch.tensor(byte["sizes"].astype(np.int32), device=dev)
-    x["budgets"] = torch.tensor(budgets, dtype=torch.int64, device=dev)
-
-    def kernel():
-        return replay_bytes_cuda(**x)
-
-    _, _, work = kernel()
-    Q, (P, N), K, T = len(POLICIES), cm.shape, len(budgets), \
-        tr.num_requests
-    C = Q * P * K
-    nbytes = (3 * 4 * T + 24 * Q + 4 * P * N + 4 * N + 8 * K
-              + C * (8 + 8 * len(BYTE_WORK_COLUMNS)))
-    slots = int(work[..., 1].sum())
-    flops = SCORE_OPS * slots
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_PEAK_FLOPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    on_card = device_time(kernel, reps=3)
-    with SmClock() as clock:
-        window_ms = time_ms(kernel, reps=3, rounds=5)
-    return dict(
-        name="replay_bytes", **KERNEL_INFO["replay_bytes"],
-        launches=launches["replay_bytes"],
-        max_abs_err=errs["replay_bytes"],
-        tolerance=TOLERANCE["replay_bytes"],
-        ms=window_ms, plain_ms=byte["plain_s"] * 1e3,
-        plain_note="the plain step loop's time on the card (sweep_torch "
-                   "with use_kernel=False: next(t), the loop, the copy "
-                   "back) in replay_parity's byte grid",
-        device_ms=on_card["ms"], device_kernels=on_card["kernels"],
-        device_note="device_time: the kernel and the wrapper's ops",
-        plain_device_ms="not measured", l2="warm",
-        bound_ms=bound_ms,
-        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-        bound_share=(bound_ms / on_card["ms"] if on_card["kernels"]
-                     else "not measured"),
-        bound_note=f"max({nbytes} bytes over 3.35 TB/s, {flops} float32 "
-                   f"operations ({slots} slots scored x {SCORE_OPS}) over "
-                   "67 TFLOP/s)",
-        library_ms=None, library_call=None,
-        library_note="none: no single PyTorch call replays a cache",
-        shape=dict(T=T, N=N, cells=C, budgets=[int(b) for b in budgets],
-                   data="wiki_cdn_like in whole bytes, replay_parity",
-                   scored_steps=int(work[..., 0].sum()), slots_scored=slots,
-                   peak_slots=int(work[..., 2].max()),
-                   victims=int(work[..., 5].sum()),
-                   fetch_through=int(work[..., 6].sum())),
-        sm_clock_mhz=clock.mhz)
-
-
 def phase_kernels(seed: int, dev, errs: dict, launches: dict,
-                  tr: Trace, schedule: dict, replay_shapes: list,
-                  byte: dict) -> None:
-    """Time each kernel at the main path's shapes beside its plain version
-    and its bound.
+                  tr: Trace, schedule: dict) -> None:
+    """Time each kernel at the shapes no benchmark cell runs, beside its
+    plain version and its bound (the cells time replay_scan, replay_bytes
+    and next_use on their 200k-request traces).
 
     `ms`, `plain_ms` and `library_ms` are CUDA-event windows over
     back-to-back calls (what a caller sees, host work between launches
@@ -1384,26 +1079,25 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
     the profiler's device time per call, and `device_kernels` splits the
     kernel's by device kernel. evict_argmin gets the step loop's steady
     state on replay_full's trace (its path, the step loop of
-    `_simulate(trace_steps=True)`, runs at any size): 96 cell rows of the full trace's objects, each row
-    with as many cached entries as its cell's budget less one (the
-    requested object is masked out), one shared touch row. Its bound counts what that data
-    needs: every mask byte, the score of each cached entry, the touch row
-    and the outputs. Inputs are warm in L2, as in the replay, where the op
-    just before wrote the scores. next_use reads each id once and writes
-    each result once (8*T bytes); it runs on replay_full's trace, on 2^22
-    uniform ids over 2^20 objects and on 2^26 over 2^22 (256 MiB an array,
-    cold) -- one shape for each of its paths -- beside
+    `_simulate(trace_steps=True)`, runs at any size): 96 cell rows of the
+    full trace's objects, each row with as many cached entries as its
+    cell's budget less one (the requested object is masked out), one
+    shared touch row. Its bound counts what that data needs: every mask
+    byte, the score of each cached entry, the touch row and the outputs.
+    Inputs are warm in L2, as in the replay, where the op just before wrote
+    the scores. next_use reads each id once and writes each result once
+    (8*T bytes); it runs on 2^22 uniform ids over 2^20 objects (the direct
+    path's limit) and on 2^26 over 2^22 (256 MiB an array, cold), beside
     `sort_only_device_ms`, a stable torch.sort of the same ids, and its
-    other paths forced. The scans
-    run on cost-FOO's CDN schedule (T = 200,000 float32 deltas and caps,
-    2.4 MB, warm in L2) and again at T = 2^26
-    (256 MiB an array, cold), where bytes and not launches should set the
-    time; their bound is 12*T bytes (deltas, zcap, occ) for
-    occupancy_feasible and 8*T for interval_occupancy. replay_scan's rows
-    come from `replay_scan_rows`. In the rows labelled
-    cold every profiled call (kernel, plain, library and yardsticks) finds
-    the L2 flushed (`L2Flush`, left out of the device time), and no cold
-    row may read more than 1.05 of its byte bound."""
+    other paths forced. The scans run on cost-FOO's CDN schedule (T =
+    200,000 float32 deltas and caps, 2.4 MB, warm in L2), interval_occupancy
+    beside torch.cumsum, and again at T = 2^26 (256 MiB an array, cold),
+    where bytes and not launches should set the time; their bound is 12*T
+    bytes (deltas, zcap, occ) for occupancy_feasible and 8*T for
+    interval_occupancy. In the rows labelled cold every profiled call
+    (kernel, plain and yardsticks) finds the L2 flushed (`L2Flush`, left out
+    of the device time), and no cold row may read more than 1.05 of its
+    byte bound."""
     rng = np.random.default_rng(seed + 1)
     C, N = len(POLICIES) * len(PRICES) * len(FULL_BUDGETS), tr.num_objects
     s = torch.tensor(rng.standard_normal((C, N)).astype(np.float32),
@@ -1416,12 +1110,10 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
         cached[c, rng.choice(N, budget - 1, replace=False)] = True
     m = torch.tensor(cached, device=dev)
     argmin_bytes = m.numel() + int(cached.sum()) * 4 + N * 4 + C * (4 + 4)
-    ids_t = torch.tensor(tr.ids.astype(np.int32), device=dev)
     ids26 = uniform_ids(seed, NU_BYTES_T, NU_BYTES_N, dev)
     dense_bytes = {"evict_argmin": C * N * (4 + 4 + 1)}
     d200 = torch.tensor(schedule["deltas"], device=dev)
     z200 = torch.tensor(schedule["zcap"], device=dev)
-    T200 = d200.numel()
     gen = torch.Generator(device=dev).manual_seed(seed)
     d26 = torch.randint(-3, 4, (SCAN_BYTES_T,), generator=gen, device=dev,
                         dtype=torch.int32).float()
@@ -1435,24 +1127,25 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
     ]
     one_wave = _build.library().next_use_one_wave_items()
     ids22 = uniform_ids(seed, 2**22, 2**20, dev)
-    for x, n, label in [(ids_t, N, "replay_full's trace (Zipf)"),
-                        (ids22, 2**20, "uniform, the direct path's limit"),
+    for x, n, label in [(ids22, 2**20, "uniform, the direct path's limit"),
                         (ids26, NU_BYTES_N, "uniform, cold")]:
+        chosen = plan(x.numel(), n, one_wave)["path"]
         cases.append(("next_use", lambda x=x, n=n: next_use_cuda(x, n),
                       lambda x=x, n=n: ref.next_use_ref(x, n), None,
                       8 * x.numel(), 5,
-                      dict(T=x.numel(), N=n, data=label,
-                           path=plan(x.numel(), n, one_wave)["path"]),
+                      dict(T=x.numel(), N=n, data=label, path=chosen),
                       dict(sort=lambda x=x: torch.sort(x, stable=True),
                            paths={other: (lambda x=x, n=n, o=other:
                                           next_use_on_path(o, x, n))
                                   for other in NU_PATHS
-                                  if other != plan(x.numel(), n,
-                                                   one_wave)["path"]
+                                  if other != chosen
                                   and (other != "one_wave"
                                        or x.numel() <= one_wave)})))
-    for d, z, label in [(d200, z200, "cost-FOO CDN schedule, warm in L2"),
-                        (d26, z26, "2^26 integer deltas, cold")]:
+    # torch.cumsum beside the warm scan only: the profiler dropped its
+    # cold calls' events in one run, failing a check of the measurement
+    for d, z, library, label in [
+            (d200, z200, True, "cost-FOO CDN schedule, warm in L2"),
+            (d26, z26, False, "2^26 integer deltas, cold")]:
         n = d.numel()
         cases += [
             ("occupancy_feasible",
@@ -1461,8 +1154,8 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
              12 * n, 50, dict(T=n, dtype="float32", data=label)),
             ("interval_occupancy", lambda d=d: interval_occupancy_cuda(d),
              lambda d=d: ref.interval_occupancy_ref(d),
-             lambda d=d: torch.cumsum(d, 0), 8 * n, 50,
-             dict(T=n, dtype="float32", data=label)),
+             (lambda d=d: torch.cumsum(d, 0)) if library else None, 8 * n,
+             50, dict(T=n, dtype="float32", data=label)),
         ]
     rows = []
     flush = L2Flush(dev)
@@ -1516,8 +1209,6 @@ def phase_kernels(seed: int, dev, errs: dict, launches: dict,
             library_call="torch.cumsum" if library else None, shape=shape,
             **extra))
     del d26, z26, ids22, ids26
-    rows += replay_scan_rows(dev, errs, launches, replay_shapes)
-    rows.append(replay_bytes_row(dev, errs, launches, byte))
     print(json.dumps({"kernels": rows}), flush=True)
 
 
@@ -1922,7 +1613,7 @@ def decode_profile(model, params, batch: dict, steps: int = 4) -> dict:
     """Where a decode step's time goes: a torch.profiler window over
     `steps` greedy decode steps after a prefill of `batch` (position S, its
     length), recorded after a warm-up round of as many (the profiler loses
-    a trace's first events; see `device_time`): device time and events a
+    a trace's first events): device time and events a
     step, host `cudaLaunchKernel` calls a step, the top device and host
     ops. For an MoE model also the device time of `aten::index`: the
     expert-weight gathers (`w1[gi]`, `w3[gi]`, `w2[gi]` in every layer)
@@ -2914,7 +2605,7 @@ def loss_oracle(model, params, batch: dict) -> dict:
 def step_profile(step, params, opt_state, batch: dict) -> dict:
     """Where a train step's time goes: a torch.profiler window over one
     step, recorded after a warm-up step (the profiler loses a trace's first
-    events; see `device_time`): device ms and events, host
+    events): device ms and events, host
     `cudaLaunchKernel` calls, the top device ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -3757,14 +3448,12 @@ def main() -> int:
          ptxas_replay_scan=(log.read_text().split("== replay_scan.cu")[-1]
                             .strip().splitlines() if log else "no log"))
     errs = phase_kernel_checks(args.seed, dev)
-    tr, cm, grid, loop_launches, parity_s, byte = phase_replay_parity(
+    tr, cm, grid, loop_launches, byte_launches = phase_replay_parity(
         args.seed, dev)
-    errs["replay_bytes"] = byte["max_abs_err"]
     phase_regret(tr, cm, grid)
     opt_launches = phase_opt_occupancy(tr, cm, dev)
     cdn = phase_costfoo_cdn(args.seed, dev)
     full = phase_replay_full(args.seed)
-    full_profile = phase_replay_profile(full)
     phase_serving(args.seed, dev)
     phase_moe_serving(args.seed, dev)
     phase_families(args.seed, dev)
@@ -3776,17 +3465,11 @@ def main() -> int:
                 "interval_occupancy": opt_launches["interval_occupancy"],
                 "occupancy_feasible": cdn["launches"]["occupancy_feasible"],
                 "replay_scan": full["launches"]["replay_scan"],
-                "replay_bytes": byte["launches"]["replay_bytes"]}
+                "replay_bytes": byte_launches["replay_bytes"]}
     check(set(launches) == set(ops.KERNELS)
           and all(n > 0 for n in launches.values()),
           f"a kernel was not launched on its path: {launches}")
-    replay_shapes = [
-        ("replay_parity (20k requests, 2k objects)", tr, cm, PARITY_BUDGETS,
-         parity_s, 10, None),
-        ("replay_full (200k requests, 20k objects)", full["trace"],
-         full["cm"], FULL_BUDGETS, full["plain_execute_s"], 2, full_profile)]
-    phase_kernels(args.seed, dev, errs, launches, full["trace"], cdn,
-                  replay_shapes, byte)
+    phase_kernels(args.seed, dev, errs, launches, full["trace"], cdn)
     print(smi[0], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

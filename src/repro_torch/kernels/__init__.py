@@ -1,6 +1,10 @@
 # Hand-written CUDA kernels for Hopper (sm_90a) behind the replay:
 #   replay_scan  — the whole (policy x price x budget) sweep in one launch
-#   next_use     — next(t), read by Belady and cost-Belady
+#   replay_bytes — the same sweep under byte budgets (replay_scan.cu's
+#                  byte replay: evict until the object fits, or fetch it
+#                  through)
+#   next_use     — next(t), read by Belady and cost-Belady, and the
+#                  frequency rank
 #   evict_argmin — the eviction decision of every priority policy, batched
 #                  over the cells of a sweep (the step loop's, which gives
 #                  the per-step trajectory)

@@ -29,7 +29,7 @@
 //     requests into shared memory (id, next use, cost, size, -max(cost,
 //     1e-30), cost / size, and the parts of sb known before the touch), so
 //     the walk reads no device memory. The frequency rank (the count of
-//     ids[t] in ids[:t+1]) is the same in every cell and comes from the host.
+//     ids[t] in ids[:t+1]) is the same in every cell and comes from next_use.
 //   * The map lives in shared memory while it takes at most half of what a
 //     block may have, else in a (C, N) region of device memory. The slot
 //     table starts in the shared memory left over; a cell whose table

@@ -14,12 +14,11 @@ through; its plain version is `_replay` given the sizes as integers.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from . import _build
 
-__all__ = ["replay_scan_cuda", "replay_bytes_cuda", "frequency_rank",
+__all__ = ["replay_scan_cuda", "replay_bytes_cuda",
            "plan", "STATIC_WARPS", "FULL_WARPS",
            "WORK_COLUMNS", "BYTE_WORK_COLUMNS", "BOUND_GROUP"]
 
@@ -49,22 +48,6 @@ BYTE_WORK_COLUMNS = WORK_COLUMNS + ("victims", "fetch_through",
 # slots under one lower bound in the byte replay (csrc/replay_scan.cu's
 # kGroup)
 BOUND_GROUP = 32
-
-
-def frequency_rank(ids: np.ndarray) -> np.ndarray:
-    """rank[t] = the count of ids[t] in ids[:t+1], int32: the frequency the
-    step loop reads at step t, the same in every cell."""
-    ids = np.asarray(ids)
-    T = len(ids)
-    order = np.argsort(ids, kind="stable")
-    grouped = ids[order]
-    pos = np.arange(T)
-    first = np.ones(T, bool)
-    first[1:] = grouped[1:] != grouped[:-1]
-    start = np.maximum.accumulate(np.where(first, pos, 0))
-    rank = np.empty(T, np.int32)
-    rank[order] = pos - start + 1
-    return rank
 
 
 def plan(cells: int, num_objects: int, shared_limit: int,
@@ -192,10 +175,11 @@ def replay_scan_cuda(weights: torch.Tensor, ids: torch.Tensor,
     """Replay every (policy, price vector, budget) cell over the trace, on
     the card, in one launch.
 
-    weights (Q, 6) float32; ids, nxt (next(t)) and rank (`frequency_rank`)
-    (T,) int32, ids in [0, N) (the kernel does not check); costs (P, N) and
-    sizes (N,) float32; budgets (K,) int32; all contiguous CUDA tensors on
-    one device. Returns dollars (Q, P, K) float32 and hits (Q, P, K) int32,
+    weights (Q, 6) float32; ids, nxt (next(t)) and rank (from
+    `ops.next_use(..., with_rank=True)`) (T,) int32, ids in [0, N) (the
+    kernel does not check); costs (P, N) and sizes (N,) float32; budgets
+    (K,) int32; all contiguous CUDA tensors on one device. Returns dollars
+    (Q, P, K) float32 and hits (Q, P, K) int32,
     bit-equal to `_replay(use_kernel=False)` on the same inputs, and work
     (Q, P, K, 5) int64, columns `WORK_COLUMNS`: the steps that scored the
     cache, the slots on them (the cache's size on each), the largest cache

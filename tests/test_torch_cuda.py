@@ -24,7 +24,6 @@ from repro_torch.kernels.interval_occupancy import (error_chain,
 from repro_torch.kernels import _build
 from repro_torch.kernels.next_use import next_use_cuda, plan
 from repro_torch.kernels.replay_scan import (BYTE_WORK_COLUMNS,
-                                             frequency_rank,
                                              replay_bytes_cuda,
                                              replay_scan_cuda)
 from repro_torch.kernels import replay_scan as replay_scan_module
@@ -211,12 +210,11 @@ def test_next_use_kernel_matches_plain(cuda, T, N, kind):
 
 def _assert_rank_beside(ids_t, N, nxt):
     """next_use_cuda with the rank: next(t) unchanged, rank[t] equal to
-    `frequency_rank` bit for bit."""
+    the plain rank on the CPU bit for bit."""
     got, rank = next_use_cuda(ids_t, N, rank=True)
     assert torch.equal(got, nxt)
     assert rank.dtype == torch.int32 and rank.shape == nxt.shape
-    np.testing.assert_array_equal(rank.cpu().numpy(),
-                                  frequency_rank(ids_t.cpu().numpy()))
+    assert torch.equal(rank.cpu(), ref.frequency_rank_ref(ids_t.cpu()))
 
 
 @pytest.mark.parametrize("kind", ["uniform", "hot"])
@@ -343,15 +341,16 @@ def test_sweep_ranks_on_the_card(cuda, monkeypatch):
     """The kernel path takes the rank from its one next_use call: no host
     rank, one rank launch a job; the plain path takes none."""
     def refuse(*a, **k):
-        raise AssertionError("the host's frequency_rank ran")
-    monkeypatch.setattr(replay_scan_module, "frequency_rank", refuse)
+        raise AssertionError("the plain frequency_rank_ref ran")
     from repro_torch.core import policies_torch
     assert not hasattr(policies_torch, "frequency_rank")
     ids, cm, budgets = _sweep_case()
     policies = list(POLICY_WEIGHTS)
     ops.reset_launch_counts()
-    got = [sweep_torch(policies, ids, cm, budgets, num_objects=24)
-           for _ in range(3)]
+    with monkeypatch.context() as patch:
+        patch.setattr(ref, "frequency_rank_ref", refuse)
+        got = [sweep_torch(policies, ids, cm, budgets, num_objects=24)
+               for _ in range(3)]
     assert next_use_cuda.rank_launches == 3
     assert ops.launch_counts()["next_use"] == 3
     sweep_torch(policies, ids, cm, budgets, num_objects=24, use_kernel=False)
@@ -438,7 +437,7 @@ def _replay_on_card(c: dict, dev) -> dict:
     return dict(
         weights=torch.tensor(np.asarray(c["weights"], np.float32), device=dev),
         ids=ids, nxt=ref.next_use_ref(ids, costs.shape[1]),
-        rank=torch.tensor(frequency_rank(c["ids"]), device=dev), costs=costs,
+        rank=ref.frequency_rank_ref(ids), costs=costs,
         sizes=torch.tensor(np.asarray(c["sizes"], np.float32), device=dev),
         budgets=torch.tensor(np.asarray(c["budgets"], np.int32), device=dev))
 

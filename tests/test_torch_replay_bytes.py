@@ -6,6 +6,7 @@ against the plain reference. The kernel itself is held to the step loop on
 the card in `tests/test_torch_cuda.py`."""
 import numpy as np
 import pytest
+import torch
 from hypothesis import assume, example, given, settings
 from hypothesis import strategies as st
 
@@ -15,10 +16,10 @@ from repro.core import simulate as ref_simulate
 from repro_torch.core import Trace, replay_bytes_ref, simulate
 from repro_torch.core import policies_torch as pt
 from repro_torch.core.trace import next_use_indices
+from repro_torch.kernels import ref
 from repro_torch.kernels.replay_scan import (BOUND_GROUP, BYTE_SLOT_WORDS,
                                              BYTE_WORK_COLUMNS, STAGE_BYTES,
-                                             WORK_COLUMNS, frequency_rank,
-                                             plan)
+                                             WORK_COLUMNS, plan)
 
 import _replay_cases as cases
 
@@ -263,7 +264,8 @@ def _bounded_cell(c, w, p, budget):
     fetch-throughs, and the slots considered and scored on the evicting
     steps."""
     ids, T = c["ids"], len(c["ids"])
-    nxt, rank = next_use_indices(ids), frequency_rank(ids)
+    nxt = next_use_indices(ids)
+    rank = ref.frequency_rank_ref(torch.tensor(ids)).numpy()
     cost = c["costs"][p].astype(f32)
     whole = c["sizes"].astype(np.int64)
     size = whole.astype(f32)

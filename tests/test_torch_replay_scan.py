@@ -34,7 +34,6 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.replay_scan import (BOUND_GROUP, BYTE_WORK_COLUMNS,
                                              CHUNK, SLOT_WORDS, STAGE_BYTES,
                                              FULL_WARPS, STATIC_WARPS,
-                                             frequency_rank,
                                              plan, replay_scan_cuda)
 
 import _replay_cases as cases
@@ -197,7 +196,7 @@ def model_grid(c: dict):
     w_all, ids, costs, sizes, budgets = (c["weights"], c["ids"], c["costs"],
                                          c["sizes"], c["budgets"])
     nxt = next_use_indices(ids).astype(np.int64)
-    rank = frequency_rank(ids)
+    rank = ref.frequency_rank_ref(torch.tensor(ids)).numpy()
     with np.errstate(all="ignore"):
         cos = costs / np.maximum(sizes, f32(1e-30))
         negcf = -np.maximum(costs, f32(1e-30))
@@ -375,18 +374,24 @@ def test_warp_budgets_straddle_the_thresholds():
                    > cases.scoring_warps(u, one, per) for one, per in rules)
 
 
+def _step_loop_counts(ids, N: int) -> np.ndarray:
+    """The frequency the step loop reads at each step: the count of ids[t]
+    in ids[:t+1]."""
+    counts = np.zeros(N, np.int64)
+    want = []
+    for i in ids:
+        counts[i] += 1
+        want.append(counts[i])
+    return np.array(want, np.int64)
+
+
 def test_frequency_rank_equals_the_step_loops_counts():
     rng = np.random.default_rng(5)
     for T, N in [(0, 1), (1, 1), (500, 7), (3000, 400)]:
         ids = rng.integers(0, N, T)
-        counts = np.zeros(N, np.int64)
-        want = []
-        for i in ids:
-            counts[i] += 1
-            want.append(counts[i])
-        got = frequency_rank(ids)
-        assert got.dtype == np.int32
-        np.testing.assert_array_equal(got, np.array(want, np.int64))
+        got = ref.frequency_rank_ref(torch.tensor(ids))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), _step_loop_counts(ids, N))
 
 
 def _rank_ids(shape):
@@ -407,26 +412,20 @@ def _rank_ids(shape):
 @pytest.mark.parametrize("shape", ["T=0", "T=1", "all equal", "N=1",
                                    "half one id"])
 def test_frequency_rank_ref_equals_the_step_loops_counts(shape):
-    """The plain PyTorch rank (next_use's with_rank on the CPU) and the
-    numpy one equal the step loop's counts on the edge shapes."""
+    """The plain PyTorch rank (next_use's with_rank on the CPU) equals the
+    step loop's counts on the edge shapes."""
     ids, N = _rank_ids(shape)
-    counts = np.zeros(N, np.int64)
-    want = []
-    for i in ids:
-        counts[i] += 1
-        want.append(counts[i])
-    want = np.array(want, np.int64)
-    np.testing.assert_array_equal(frequency_rank(ids), want)
     got = ref.frequency_rank_ref(torch.tensor(ids))
     assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), _step_loop_counts(ids, N))
 
 
 @pytest.mark.parametrize("shape", ["T=1", "all equal", "N=1", "half one id"])
 @pytest.mark.parametrize("with_rank", [False, True])
 def test_next_use_with_rank_on_the_cpu(shape, with_rank):
     """ops.next_use's plain path: next(t) alone as before, or (next, rank)
-    equal to the plain next(t) and to `frequency_rank`; no kernel runs."""
+    equal to the plain next(t) and to the step loop's counts; no kernel
+    runs."""
     ids, N = _rank_ids(shape)
     ids_t = torch.tensor(ids)
     ops.reset_launch_counts()
@@ -437,7 +436,8 @@ def test_next_use_with_rank_on_the_cpu(shape, with_rank):
     assert torch.equal(nxt, ref.next_use_ref(ids_t, N))
     if with_rank:
         assert len(got) == 2
-        np.testing.assert_array_equal(got[1].numpy(), frequency_rank(ids))
+        np.testing.assert_array_equal(got[1].numpy(),
+                                      _step_loop_counts(ids, N))
     assert ops.launch_counts()["next_use"] == 0
 
 

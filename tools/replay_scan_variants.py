@@ -20,8 +20,8 @@ replay_full's (twemcache_like, 20,000 requests over 2,000 objects and
 seed 1). For each shape every variant must give the kernel's dollars and
 hits bit for bit; then the kernel, each variant and the kernel again are
 timed (chip_smoke.time_ms: the median of 5 CUDA-event windows, the SM clock
-sampled beside them by chip_smoke.SmClock) and print one JSON line each:
-the time, the slowest and the median cell (chip_smoke.replay_cells), the
+sampled beside them by `SmClock`) and print one JSON line each: the time,
+the slowest and the median cell (`replay_cells`), the
 slowest cell among rows with w_cb = 0 and among the rest, and every cell's
 cycles. Then the card's name and power limit. Exits non-zero without a card
 or if a variant's results differ.
@@ -45,13 +45,61 @@ import chip_smoke  # noqa: E402
 from repro_torch.core import twemcache_like  # noqa: E402
 from repro_torch.core.policies_torch import stack_policy_weights  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.replay_scan import replay_scan_cuda  # noqa: E402
+from repro_torch.kernels.replay_scan import (WORK_COLUMNS,  # noqa: E402
+                                             replay_scan_cuda)
 
 DEFAULT = ["static_off", "static=640/320", "static=2048/320",
            "full=64/64", "full=256/256"]
 SHAPES = {"parity": (2000, 20_000, chip_smoke.PARITY_BUDGETS, 10),
           "full": (20_000, 200_000, chip_smoke.FULL_BUDGETS, 3)}
 SEED = 1
+
+
+class SmClock:
+    """The SM clock sampled beside a timing window: `nvidia-smi
+    --query-gpu=clocks.sm` every 100 ms while the block runs, stopped when
+    it ends. `mhz` holds the samples."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        self.mhz = [int(x) for x in out.split() if x.strip().isdigit()]
+        return False
+
+
+def replay_cells(work, budgets, T: int) -> dict:
+    """Where one replay_scan launch over the (policies x prices x budgets)
+    grid spent its cycles, from its work counters: the slowest and the
+    median cell by clock64() cycles, each with its evicting steps, the
+    cycles from reaching them to their victims (share and per step), and
+    the rest (the walk, staging and chunk barriers) per request."""
+    w = work.cpu().numpy().reshape(-1, len(WORK_COLUMNS))
+    col = {name: w[:, j] for j, name in enumerate(WORK_COLUMNS)}
+    shape = (len(chip_smoke.POLICIES), len(chip_smoke.PRICES), len(budgets))
+    order = np.argsort(col["cycles"], kind="stable")
+
+    def cell(c: int) -> dict:
+        q, p, k = np.unravel_index(c, shape)
+        cycles, evict = int(col["cycles"][c]), int(col["evict_cycles"][c])
+        steps = int(col["scored_steps"][c])
+        return dict(policy=chip_smoke.POLICIES[q],
+                    price=chip_smoke.PRICES[p],
+                    budget=int(budgets[k]), cycles=cycles,
+                    evicting_steps=steps, evict_cycles=evict,
+                    evict_share=evict / cycles,
+                    cycles_per_evicting_step=evict / steps if steps else None,
+                    other_cycles_per_request=(cycles - evict) / T)
+
+    return dict(slowest=cell(int(order[-1])),
+                median=cell(int(order[len(order) // 2])),
+                cycles_all=col["cycles"].tolist())
 
 
 def edit(source: str, variant: str) -> str:
@@ -134,10 +182,10 @@ def main() -> int:
         for variant in ["kernel", *variants, "kernel"]:
             with kernel_of(libs.get(variant)):
                 _, _, work = replay_scan_cuda(**x)
-                with chip_smoke.SmClock() as clock:
+                with SmClock() as clock:
                     ms = chip_smoke.time_ms(lambda: replay_scan_cuda(**x),
                                             reps=reps, rounds=5)
-            cells = chip_smoke.replay_cells(work, budgets, T)
+            cells = replay_cells(work, budgets, T)
             cycles = np.array(cells["cycles_all"]).reshape(len(static_rows),
                                                            len(budgets))
             print(json.dumps(dict(
