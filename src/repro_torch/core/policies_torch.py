@@ -381,7 +381,11 @@ def sweep_torch(policy, ids: np.ndarray, cost_matrix: np.ndarray,
                  also `work`, the kernel's counters as int64 numpy of
                  dollars' shape plus a last axis in `WORK_COLUMNS` order
                  (`BYTE_WORK_COLUMNS` for bytes), copied back after the
-                 results (none without `profile`).
+                 results (none without `profile`); its last three columns
+                 are the cell's launch: the block that replayed it (in a
+                 grid of more cells than SMs, slowest rows first:
+                 `replay_scan`'s launch order) and the block's start and
+                 end in ns.
     device:      None -> CUDA, raising when there is no card.
     return_hits: also return the hit counts, int32 of the same shape.
     """

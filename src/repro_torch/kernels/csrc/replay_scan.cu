@@ -17,6 +17,20 @@
 // (PERF.md: about four cycles an instruction).
 //
 // Layout: one CTA of 512 threads a cell, cell c = (q*P + p)*K + k.
+//   * The launch order. A block takes an SM's registers (launch bounds 512,
+//     1), so a grid of more cells than the card has SMs replays in waves,
+//     and the hardware hands out blocks in index order. In such a grid
+//     block b replays the b-th cell in (class, q, p, k) order, the class of
+//     row q read from its weights: 0 where w_cb != 0 (every evicting step
+//     scores in full), 1 in GreedyDual rows (w_gd + w_gdsf > 0: the victim
+//     rescored, infl carried), 2 where the score is fixed at the touch. The
+//     rows that take longest thus start in the first wave, and within a
+//     class the grid's own order holds. A grid of one wave keeps block b on
+//     cell b: its cells all start at once, and moving them only moves which
+//     SMs share a TPC, which cost cdn_bytes.panel96's slowest cell 2 % in
+//     class order (PERF.md). Every block finds its cell from the (Q, 6)
+//     weights and the SM count alone (launch_cell); every output stays
+//     indexed by cell, so the order changes no result.
 //   * A cell's cache is a table of slots, not an (N,) row: a slot holds the
 //     object, its next use, the part of its score fixed at the touch (sb =
 //     static + w_bel * bel), its size, -max(cost, 1e-30), and one 8-byte
@@ -112,7 +126,10 @@
 // scored, the slots the algorithm considers on them (used on each evicting
 // step, whichever path scored it), the largest table it held, the cell's
 // clock64() cycles from start to end, and the cycles from reaching each
-// evicting step to its victim's decision.
+// evicting step to its victim's decision; then, last in both kernels, the
+// launch: the block that replayed the cell and %globaltimer (ns) at the
+// block's start and end, from which a launch's span over its longest
+// cell's own time tells how long cells waited for an SM.
 //
 // The byte replay (replay_bytes_kernel; plain version _replay with
 // byte_sizes) is the same walk and the same evicting step, built a second
@@ -164,8 +181,8 @@ constexpr int kStageWords = 9;       // words a staged request
 constexpr int kSlotWords = 7;        // words a slot (the key takes two)
 constexpr int kByteSlotWords = 8;    // and the whole-byte size
 constexpr int kStageBytes = kChunk * kStageWords * 4;
-constexpr int kWorkWords = 5;        // work counters a cell
-constexpr int kByteWorkWords = 8;    // and victims, fetch-throughs, rescans
+constexpr int kWorkWords = 8;        // work counters a cell, the launch's 3
+constexpr int kByteWorkWords = 11;   // and victims, fetch-throughs, rescans
 constexpr int kGroup = 32;           // slots under one bound (the byte replay)
 constexpr float kBig = 3.4e38f;
 constexpr unsigned kBad = 0x80000000u;   // next-use word: w_cb * cb not finite
@@ -391,6 +408,7 @@ struct Params {
   int slots_shared;          // slots the shared table holds
   unsigned long long* bounds;   // (C, ceil(N / 32)) the byte replay's group
                                 // bounds, else null
+  int sms;                   // the device's SMs (set by launch)
 };
 
 // The cell's replay state. Warp 0 runs the walk in lockstep, every lane on
@@ -716,6 +734,44 @@ __device__ __forceinline__ int replay_chunk(Cell& c, int& j, int n, int t0,
   }
 }
 
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (long long)t;
+}
+
+// Row w's class in the launch order: 0 where w_cb != 0, 1 in GreedyDual
+// rows, 2 where the score is fixed at the touch (Row's static_row and
+// gd_active are the same tests).
+__device__ __forceinline__ int row_class(const float* w) {
+  if (!(w[5] == 0.0f)) return 0;
+  return __fadd_rn(w[2], w[3]) > 0.0f ? 1 : 2;
+}
+
+// The cell block b replays: b in a grid of one wave, else the b-th in
+// (class, q, p, k) order. Each row has P * K cells, so b's row is the
+// (b / (P*K))-th in (class, q) order; every warp finds it alike, its lanes
+// testing 32 rows at a time.
+__device__ __forceinline__ int launch_cell(const Params& p) {
+  if (gridDim.x <= p.sms) return blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int PK = p.P * p.K, Q = gridDim.x / PK;
+  int left = blockIdx.x / PK;   // rows to pass over in (class, q) order
+  for (int cls = 0; cls < 3; ++cls) {
+    for (int q0 = 0; q0 < Q; q0 += 32) {
+      const int q = q0 + lane;
+      unsigned in =
+          __ballot_sync(~0u, q < Q && row_class(p.weights + q * 6) == cls);
+      if (left < __popc(in)) {
+        for (; left > 0; --left) in &= in - 1;   // drop the rows passed over
+        return (q0 + __ffs(in) - 1) * PK + blockIdx.x % PK;
+      }
+      left -= __popc(in);
+    }
+  }
+  return blockIdx.x;   // not reached: the grid has Q * P * K blocks
+}
+
 // One cell's replay, for the page kernel (kBytes false) and the byte
 // kernel.
 template <bool kMapShared, bool kBytes>
@@ -724,8 +780,15 @@ __device__ __forceinline__ void replay_cell(const Params p) {
   __shared__ Key winners[kWarps];
   __shared__ Control ctl;
   const long long start = clock64();
+  const long long start_ns = global_ns();
 
-  const int cell = blockIdx.x;
+  const int cell = launch_cell(p);
+  constexpr int kWords = kBytes ? kByteWorkWords : kWorkWords;
+  if (threadIdx.x == 0) {   // the launch's columns, last in the row
+    long long* out = p.work + (long long)kWords * cell;
+    out[kWords - 3] = blockIdx.x;
+    out[kWords - 2] = start_ns;
+  }
   const int k = cell % p.K;
   const int pi = (cell / p.K) % p.P;
   const int q = cell / p.K / p.P;
@@ -925,8 +988,7 @@ __device__ __forceinline__ void replay_cell(const Params p) {
   }
 
   if (tid == 0) {
-    long long* out =
-        p.work + (long long)(kBytes ? kByteWorkWords : kWorkWords) * cell;
+    long long* out = p.work + (long long)kWords * cell;
     p.dollars[cell] = c.dollars;
     p.hits[cell] = c.hits;
     out[0] = c.scored_steps;
@@ -939,6 +1001,7 @@ __device__ __forceinline__ void replay_cell(const Params p) {
       out[6] = c.fetch_through;
       out[7] = c.rescanned;
     }
+    out[kWords - 1] = global_ns();
   }
 }
 
@@ -972,8 +1035,9 @@ long long shared_limit(Kernel kernel) {
   return (long long)optin - (long long)attr.sharedSizeBytes;
 }
 
-// Checks the layout, sets the kernel's shared memory and launches C blocks.
-int launch(void (*kernel)(const Params), const Params& p, long long cells,
+// Checks the layout, sets the kernel's shared memory and the device's SM
+// count, and launches C blocks.
+int launch(void (*kernel)(const Params), Params p, long long cells,
            int slot_words, long long dynamic_bytes, long long limit,
            void* stream) {
   if (p.T < 0 || p.N < 1 || cells < 1 || cells > INT_MAX ||
@@ -985,8 +1049,14 @@ int launch(void (*kernel)(const Params), const Params& p, long long cells,
           shared_bytes(p.N, p.map_shared, p.slots_shared, slot_words) ||
       dynamic_bytes > limit)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dynamic_bytes);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&p.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)dynamic_bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(int)cells, kThreads, (size_t)dynamic_bytes,
            (cudaStream_t)stream>>>(p);
@@ -1008,7 +1078,7 @@ extern "C" long long replay_bytes_shared_limit() {
 // ids, nxt, rank: (T,) int32; weights (Q, 6), costs, c_over_s and
 // neg_cost_floor (P, N), sizes (N,) float32; budgets (K,) int32; all on the
 // device, contiguous. Writes dollars (C,) float32, hits (C,) int32 and work
-// (C, 5) int64 for C = Q*P*K cells. map_global: (C, N) int32 unless
+// (C, 8) int64 for C = Q*P*K cells. map_global: (C, N) int32 unless
 // map_shared; slots_global: (C, 7 * (N rounded up to even)) int32, 8-byte
 // aligned, unless slots_shared == N.
 // `dynamic_bytes` must be the layout's size as plan() computed it. One
@@ -1046,7 +1116,7 @@ extern "C" int replay_scan_launch(
 
 // The byte replay's launch: as replay_scan_launch, with byte_sizes (N,)
 // int32 in place of sizes and byte_budgets (K,) int64 in place of budgets;
-// work (C, 8) int64; slots_global (C, 8 * (N rounded up to even)) int32
+// work (C, 11) int64; slots_global (C, 8 * (N rounded up to even)) int32
 // unless slots_shared == N; bounds (C, ceil(N / 32)) int64, 8-byte
 // aligned, never read before the kernel writes it.
 extern "C" int replay_bytes_launch(

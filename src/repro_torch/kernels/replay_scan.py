@@ -37,14 +37,25 @@ BYTE_SLOT_WORDS = 8
 # slot, no division) and for the rest (six words and a division a slot).
 STATIC_WARPS = (1024, 320)
 FULL_WARPS = (128, 128)
-WORK_COLUMNS = ("scored_steps", "slots_scored", "peak_slots", "cycles",
-                "evict_cycles")
+_COUNTERS = ("scored_steps", "slots_scored", "peak_slots", "cycles",
+             "evict_cycles")
+# Last in every cell's row, its launch. One block fills an SM, so a grid of
+# more cells than SMs replays in waves, and blocks start in index order:
+# there block b replays the b-th cell in (class, policy row, price, budget)
+# order, the rows with w_cb != 0 first, then GreedyDual's (w_gd + w_gdsf >
+# 0), then those whose score is fixed at the touch, so the slowest rows
+# start in the first wave; in a grid of one wave block b replays cell b.
+# `block` is the block that replayed the cell, `start_ns` and `end_ns` the
+# card's %globaltimer at its start and end (a launch's span over its
+# longest cell's own time: 1.0 where no cell waited for an SM).
+_LAUNCH = ("block", "start_ns", "end_ns")
+WORK_COLUMNS = _COUNTERS + _LAUNCH
 # the byte replay's: also the evictions, the misses fetched through (not
 # admitted: larger than the budget, or nothing below 3.4e38 to evict) and
 # the slots its evicting steps scored (`slots_scored` less those that the
-# cost-Belady rows' group bounds left out)
-BYTE_WORK_COLUMNS = WORK_COLUMNS + ("victims", "fetch_through",
-                                    "rescanned_slots")
+# cost-Belady rows' group bounds left out), before the launch's
+BYTE_WORK_COLUMNS = _COUNTERS + ("victims", "fetch_through",
+                                 "rescanned_slots") + _LAUNCH
 # slots under one lower bound in the byte replay (csrc/replay_scan.cu's
 # kGroup)
 BOUND_GROUP = 32
@@ -181,12 +192,13 @@ def replay_scan_cuda(weights: torch.Tensor, ids: torch.Tensor,
     (K,) int32; all contiguous CUDA tensors on one device. Returns dollars
     (Q, P, K) float32 and hits (Q, P, K) int32,
     bit-equal to `_replay(use_kernel=False)` on the same inputs, and work
-    (Q, P, K, 5) int64, columns `WORK_COLUMNS`: the steps that scored the
+    (Q, P, K, 8) int64, columns `WORK_COLUMNS`: the steps that scored the
     cache, the slots on them (the cache's size on each), the largest cache
     held, the cell's clock64() cycles from start to end and those spent from
-    reaching an evicting step to its victim. Launches one kernel on the
-    current stream, does not synchronise, and raises if the launch is
-    refused.
+    reaching an evicting step to its victim, then the block that replayed
+    the cell (past one wave, slowest rows first; see `WORK_COLUMNS`) and the
+    block's start and end in ns. Launches one kernel on the current stream, does not
+    synchronise, and raises if the launch is refused.
     """
     _check(weights, ids, nxt, rank, costs, sizes, budgets)
     out = _launch(weights, ids, nxt, rank, costs, sizes, budgets)
@@ -208,7 +220,7 @@ def replay_bytes_cuda(weights: torch.Tensor, ids: torch.Tensor,
     budgets (K,) int64 in bytes (>= 0). Returns dollars (Q, P, K) float32
     and hits (Q, P, K) int32, bit-equal to `_replay(use_kernel=False)` on
     the same inputs (its byte replay, which these integer sizes select),
-    and work (Q, P, K, 8) int64, columns `BYTE_WORK_COLUMNS`. Launches one
+    and work (Q, P, K, 11) int64, columns `BYTE_WORK_COLUMNS`. Launches one
     kernel on the current stream, does not synchronise, and raises if the
     launch is refused.
     """

@@ -23,7 +23,7 @@ from repro_torch.kernels.interval_occupancy import (error_chain,
                                                     occupancy_feasible_cuda)
 from repro_torch.kernels import _build
 from repro_torch.kernels.next_use import next_use_cuda, plan
-from repro_torch.kernels.replay_scan import (BYTE_WORK_COLUMNS,
+from repro_torch.kernels.replay_scan import (BYTE_WORK_COLUMNS, WORK_COLUMNS,
                                              replay_bytes_cuda,
                                              replay_scan_cuda)
 from repro_torch.kernels import replay_scan as replay_scan_module
@@ -442,6 +442,31 @@ def _replay_on_card(c: dict, dev) -> dict:
         budgets=torch.tensor(np.asarray(c["budgets"], np.int32), device=dev))
 
 
+def _launch_order(weights, P: int, K: int) -> np.ndarray:
+    """The cells in the replay kernels' launch order: in a grid of more
+    cells than the card's SMs (class, q, p, k), class 0 where w_cb != 0, 1
+    in GreedyDual rows (w_gd + w_gdsf > 0 in float32), 2 where the score
+    is fixed at the touch; in a grid of one wave, the cells' own order."""
+    w = np.asarray(weights, np.float32)
+    cells = len(w) * P * K
+    if cells <= torch.cuda.get_device_properties(0).multi_processor_count:
+        return np.arange(cells)
+    cls = np.where(w[:, 5] != 0, 0, np.where(w[:, 2] + w[:, 3] > 0, 1, 2))
+    rows = np.argsort(cls, kind="stable")
+    return (rows[:, None] * (P * K) + np.arange(P * K)).ravel()
+
+
+def _check_launch(work, columns, weights) -> None:
+    """The launch's columns: block b replayed the b-th cell of
+    `_launch_order`, and every block's start is at or before its end."""
+    work = np.asarray(work)
+    col = {c: work[..., j].ravel() for j, c in enumerate(columns)}
+    order = _launch_order(weights, *work.shape[1:3])
+    np.testing.assert_array_equal(np.sort(col["block"]), np.arange(len(order)))
+    np.testing.assert_array_equal(np.argsort(col["block"]), order)
+    assert (col["start_ns"] <= col["end_ns"]).all()
+
+
 def _replay_kernel_against_step_loop(x: dict):
     d, h, work = replay_scan_cuda(**x)
     d2, h2, work2 = replay_scan_cuda(**x)
@@ -457,6 +482,8 @@ def _replay_kernel_against_step_loop(x: dict):
     assert bool((cycles > 0).all()) and bool((evict_cycles >= 0).all())
     assert bool((evict_cycles <= cycles).all())
     assert bool(((evict_cycles > 0) == (work[..., 0] > 0)).all())
+    for w in (work, work2):
+        _check_launch(w.cpu().numpy(), WORK_COLUMNS, x["weights"].cpu())
     return work
 
 
@@ -473,9 +500,15 @@ def test_replay_scan_matches_step_loop(cuda, name):
 
 
 def test_replay_scan_more_cells_than_sms(cuda):
+    """240 cells on 132 SMs: bit-equal to the step loop, each block on the
+    cell of its place in the launch order (w_cb != 0 rows, GreedyDual's,
+    the rest), which puts those rows' cells in the first wave."""
     c = _replay_cases.make("lognormal")
     c = dict(c, weights=np.concatenate([c["weights"]] * 3))   # 240 cells
-    _replay_kernel_against_step_loop(_replay_on_card(c, cuda))
+    work = _replay_kernel_against_step_loop(_replay_on_card(c, cuda))
+    block = work[..., WORK_COLUMNS.index("block")].cpu().numpy()
+    slow = np.asarray(c["weights"])[:, 5] != 0
+    assert block[slow].max() < block[~slow].min()
 
 
 def test_replay_scan_map_and_slots_in_device_memory(cuda):
@@ -537,10 +570,12 @@ def _bytes_against_reference(c: dict, runs: int = 2, plain: str = "cpu"):
         assert (rescanned <= scored).all()
         off = ~(np.asarray(c["weights"])[:, 5] > 0)
         np.testing.assert_array_equal(rescanned[off], scored[off])
+        _check_launch(work, BYTE_WORK_COLUMNS, c["weights"])
         works.append(work)
+    # the counts and the launch order repeat; the clock's columns are times
     for work in works[1:]:
         np.testing.assert_array_equal(work[..., :3], works[0][..., :3])
-        np.testing.assert_array_equal(work[..., 5:], works[0][..., 5:])
+        np.testing.assert_array_equal(work[..., 5:9], works[0][..., 5:9])
     return works[-1]
 
 
@@ -560,6 +595,18 @@ def test_replay_bytes_matches_step_loop(cuda, name):
         # the objects larger than the budget are
         assert (work[..., 0, 6] == len(c["ids"])).all()
         assert (work[..., 1, 6] > 0).all()
+
+
+def test_replay_bytes_more_cells_than_sms(cuda):
+    """270 byte cells on 132 SMs: bit-equal to the plain step loop and the
+    plain reference, each block on the cell of its place in the launch
+    order, the w_cb != 0 rows' cells in the first wave."""
+    c = _replay_cases.make_bytes("pareto")
+    c = dict(c, weights=np.concatenate([c["weights"]] * 3))   # 270 cells
+    work = _bytes_against_reference(c)
+    block = work[..., BYTE_WORK_COLUMNS.index("block")]
+    slow = np.asarray(c["weights"])[:, 5] != 0
+    assert block[slow].max() < block[~slow].min() and block[slow].size < 132
 
 
 def test_replay_bytes_table_in_device_memory(cuda):

@@ -181,9 +181,12 @@ def test_profile_and_spans_on_the_cpu():
 
 
 def test_byte_layout():
-    assert BYTE_WORK_COLUMNS[:5] == WORK_COLUMNS
-    assert BYTE_WORK_COLUMNS[5:] == ("victims", "fetch_through",
-                                     "rescanned_slots")
+    # the page counters, the byte replay's three, then both kernels' launch
+    launch = ("block", "start_ns", "end_ns")
+    assert BYTE_WORK_COLUMNS[:5] == WORK_COLUMNS[:5]
+    assert BYTE_WORK_COLUMNS[5:8] == ("victims", "fetch_through",
+                                      "rescanned_slots")
+    assert BYTE_WORK_COLUMNS[8:] == WORK_COLUMNS[5:] == launch
     limit = 232_448 - 272
     # few objects fit shared memory whole; many get regions of N slots
     # (rounded up to even), eight words a slot, as the page layout's seven

@@ -34,7 +34,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.replay_scan import (BOUND_GROUP, BYTE_WORK_COLUMNS,
                                              CHUNK, SLOT_WORDS, STAGE_BYTES,
                                              FULL_WARPS, STATIC_WARPS,
-                                             plan, replay_scan_cuda)
+                                             WORK_COLUMNS, plan,
+                                             replay_scan_cuda)
 
 import _replay_cases as cases
 
@@ -355,6 +356,7 @@ def test_layout_constants_mirror_the_kernel_source():
     assert ints(r"constexpr int kFullOne = (\d+), kFullPer = (\d+);") == \
         FULL_WARPS
     assert ints(r"constexpr int kGroup = (\d+);") == (BOUND_GROUP,)
+    assert ints(r"constexpr int kWorkWords = (\d+);") == (len(WORK_COLUMNS),)
     assert ints(r"constexpr int kByteWorkWords = (\d+);") == (
         len(BYTE_WORK_COLUMNS),)
 
